@@ -6,21 +6,32 @@
 Phases; any failure exits non-zero without the final `ok` line:
   1. the card's name and power limit (nvidia-smi); CUDA required; TF32 off;
   2. build both CUDA kernels from orb_slam3_tpu_torch/csrc (one nvcc each,
-     started together) and print the build seconds and ptxas reports;
+     started together) and print the build seconds and ptxas reports
+     (registers, spills);
   3. K1 against its plain version at N=2048 landmarks x M=1000 keypoints,
-     with planted matches, ties and empty windows: ok exact, idx/dist exact
-     where ok;
+     with planted matches, ties and empty windows (ok exact, idx/dist exact
+     where ok), then the spatial binning's edge cases at the same shapes,
+     exact everywhere: keypoints far outside the frame, windows on their
+     edge, a radius larger than a grid cell, all keypoints in one cell, a
+     tie whose lower index lies in a cell visited later, M=0, M=2100 (two
+     tiles) and N=37;
   4. K2 against its plain version at N=2048 rows, mono and mixed stereo,
-     B=1 and B=4: n and mask equal, R within 1e-5 and t within 1e-4;
+     B=1 and B=4, then N in {5, 256, 257, 2049, 9000} (cluster sizes 1, 2
+     and 8, a ragged edge, rows past the shared-memory stage), B in {1, 4},
+     mono and stereo: n and mask equal, R within 1e-5 and t within 1e-4;
+     two calls on the same inputs give the same bits; prints the cluster
+     size K2 launches with at N=2048;
   5. the tracking step at full width (752x480, 1000 features, 8 levels,
      L=2048) on a self-consistent scene: the launch counters are zeroed,
      the step runs once, both kernels must have launched, >= 90% of the
      frame landmarks are inliers and the true pose is recovered within
      1e-3; the same step on the CPU (plain versions) must recover it too;
      entry()'s own example arguments run and give finite results;
-  6. timing with CUDA events (median of 50 runs after warm-up) of the full
-     step, each kernel and each plain version at the main path's inputs,
-     printed as one JSON line with each kernel's bound.
+  6. timing of the full step, each kernel and each plain version at the
+     main path's inputs (CUDA events, median of 50 runs after warm-up),
+     each kernel's device time (torch.profiler), its host enqueue time
+     (host clock around the call, no sync, median) and the device time of
+     an empty launch, printed as one JSON line with each kernel's bound.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -77,6 +88,23 @@ def time_ms(fn, runs=50, warmup=5):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_ms(fn, runs=50, warmup=5):
+    """Median host milliseconds to enqueue one call: host clock around the
+    call, no synchronisation in between."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
 
 
 def device_kernel_ms(fn, names, runs=20):
@@ -161,7 +189,83 @@ def phase_k1(dev):
     check(bool((got[0][1500:1600] == 0).all()) and not ok[1500:1600].any(),
           "K1: empty rows must give idx 0, not ok")
     print(f"[k1] N=2048 M=1000: ok rows {n_ok}, kernel == plain")
+
+    for name, a, kw_e in k1_edge_cases(dev):
+        got = mk.search_by_projection_kernel(*a, **kw_e)
+        torch.cuda.synchronize()
+        got = [x.cpu() for x in got]
+        if a[4].shape[0] == 0:  # M = 0: the plain version has no column to argmin
+            check(bool((got[0] == 0).all() and (got[1] == mk.BIG).all()) and not got[2].any(),
+                  "K1 M=0: every row must be empty")
+            print(f"[k1] edge case {name} (N={a[0].shape[0]}, M=0): every row empty")
+            continue
+        ref = mk.search_by_projection_plain(*a, **kw_e)
+        for g, r, what in zip(got, ref, ("idx", "dist", "ok")):
+            check(torch.equal(g, r.cpu()), f"K1 {name}: {what} differs in "
+                  f"{int((g != r.cpu()).sum())} rows")
+        if name == "tie_in_later_cell":
+            check((int(got[0][0]), int(got[1][0]), bool(got[2][0])) == (2, 0, True),
+                  f"K1 tie: got idx {int(got[0][0])}, want the lower index 2")
+        print(f"[k1] edge case {name} (N={a[0].shape[0]}, M={a[4].shape[0]}): "
+              f"ok rows {int(got[2].sum())}, kernel == plain everywhere")
     return err
+
+
+def k1_edge_cases(dev, N=2048, M=1000):
+    """(name, args, kwargs) of the binning's edge cases at the main path's
+    shapes, from k1_case's planted matches."""
+    import numpy as np
+    import torch
+
+    kw = dict(max_dist=100, ratio=0.8, level_lo=-1, level_hi=1)
+    t = lambda arrs: [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs]
+    fresh = lambda seed=5, m=M: [x.cpu().numpy().copy() for x in k1_case("cpu", seed, N, m)]
+    rng = np.random.default_rng(6)
+    out = []
+
+    uv, po, pd, pv, kp, ko, kd, kv, radius = a = fresh()
+    kp[-40:] = rng.uniform(-1e5, 1e5, (40, 2))  # far outside the frame
+    uv[1700], pd[1700], po[1700], pv[1700] = kp[M - 3], kd[M - 3], ko[M - 3], True
+    kv[M - 3] = True
+    out.append(("far_keypoints", t(a), kw))
+
+    uv, po, pd, pv, kp, ko, kd, kv, radius = a = fresh()
+    r = radius[:300, None]
+    sign = np.where(rng.uniform(size=(300, 2)) < 0.5, -1.0, 1.0).astype(np.float32)
+    edge = uv[:300] + sign * r  # on the window's edge, |d| == r where f32 allows
+    kp[:300] = np.where(np.abs(edge - uv[:300]) <= r, edge, kp[:300])
+    out.append(("border_windows", t(a), kw))
+
+    a = fresh()
+    a[8][:] = 400.0  # radius far larger than a grid cell
+    out.append(("large_radius", t(a), kw))
+
+    uv, po, pd, pv, kp, ko, kd, kv, radius = a = fresh()
+    kp[:] = np.float32(376.0) + rng.uniform(0, 1e-3, (M, 2)).astype(np.float32)
+    uv[:100] = 376.0
+    out.append(("one_cell", t(a), kw))
+
+    uv, po, pd, pv, kp, ko, kd, kv, radius = a = fresh()
+    # keypoints 2 and 9 carry landmark 0's descriptor; 2, the lower index,
+    # sits lower in the image, in a grid row visited after 9's
+    uv[0], radius[0], pv[0] = (376.0, 240.0), 40.0, True
+    kp[0] = (5.0, 5.0)
+    kd[[2, 9]], ko[[2, 9]], kv[[2, 9]] = pd[0], po[0], True
+    kp[2], kp[9] = (376.0, 270.0), (376.0, 210.0)
+    out.append(("tie_in_later_cell", t(a), dict(kw, ratio=None)))
+
+    a = fresh()
+    for i in (4, 5, 6, 7):
+        a[i] = a[i][:0]
+    out.append(("no_keypoints", t(a), kw))
+
+    out.append(("two_tiles", t(fresh(seed=7, m=2100)), kw))
+
+    a = fresh()
+    for i in (0, 1, 2, 3, 8):  # 37 landmarks with planted matches, past the tied rows
+        a[i] = a[i][600:637]
+    out.append(("37_landmarks", t(a), kw))
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -217,16 +321,23 @@ def phase_k2(dev):
     from orb_slam3_tpu_torch.tracking import pose_kernel as pk
 
     err = 0.0
-    for B in (1, 4):
-        for stereo in (False, True):
-            args, kw = k2_case(dev, B, stereo, seed=10 * B + stereo)
-            got = pk.pose_ba(*args, **kw)
-            ref = pk.pose_ba_plain(*args, **kw)
-            torch.cuda.synchronize()
-            what = f"B={B} {'stereo' if stereo else 'mono'}"
-            e = compare_k2(got, ref, what)
-            err = max(err, e)
-            print(f"[k2] {what} N=2048: n={got[3].tolist()} max |err| {e:.3g}")
+    print(f"[k2] cluster size at N=2048: {pk.cluster_size(2048)} CTAs per problem")
+    for N in (2048, 5, 256, 257, 2049, 9000):
+        for B in (1, 4):
+            for stereo in (False, True):
+                args, kw = k2_case(dev, B, stereo, seed=10 * B + stereo + N, N=N)
+                got = pk.pose_ba(*args, **kw)
+                ref = pk.pose_ba_plain(*args, **kw)
+                torch.cuda.synchronize()
+                what = f"B={B} N={N} {'stereo' if stereo else 'mono'}"
+                e = compare_k2(got, ref, what)
+                err = max(err, e)
+                again = pk.pose_ba(*args, **kw)
+                torch.cuda.synchronize()
+                check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                      f"K2 {what}: two calls differ")
+                print(f"[k2] {what} (cluster {pk.cluster_size(N)}): n={got[3].tolist()} "
+                      f"max |err| {e:.3g}, bitwise equal across two calls")
     return err
 
 
@@ -362,29 +473,26 @@ def stage_breakdown(step, args, cfg, K):
         "pose_ms": time_ms(lambda: track.pose_optimize(
             cam.PINHOLE, K, R0, t0, uv, lm_pos, inv, ok)),
     }
-    try:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-        runs = 10
+    runs = 10
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        a.record()
+        for _ in range(runs):
+            step(*args)
+        b.record()
         torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            a.record()
-            for _ in range(runs):
-                step(*args)
-            b.record()
-            torch.cuda.synchronize()
-        busy_us, n_kernels = 0.0, 0
-        for ev in prof.key_averages():
-            if ev.device_type == DeviceType.CUDA:
-                busy_us += ev.self_device_time_total
-                n_kernels += ev.count
-        out["device_busy_share"] = busy_us / 1000.0 / a.elapsed_time(b)
-        out["kernels_per_step"] = n_kernels / runs
-    except Exception as e:  # the profiler is optional: say why it is missing
-        print(f"[timing] profiler breakdown unavailable: {e}")
+    busy_us, n_kernels = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            busy_us += ev.self_device_time_total
+            n_kernels += ev.count
+    out["device_busy_share"] = busy_us / 1000.0 / a.elapsed_time(b)
+    out["kernels_per_step"] = n_kernels / runs
     return out
 
 
@@ -395,11 +503,15 @@ def k1_bound(a):
     uv, po, pd, pv, kp, ko, kd, kv, radius = a
     N, M = uv.shape[0], kp.shape[0]
     nbytes = N * (8 + 4 + 32 + 1 + 4) + M * (8 + 4 + 32 + 1) + N * (4 + 4 + 1)
-    gated = matching.window_mask(uv, kp, radius, pv, kv) & matching.octave_mask(po, ko, -1, 1)
-    # per gate test of a valid landmark: 2 x (sub, abs, compare) + 2 octave
-    # compares + valid = 9; per gated-in pair: 8 XOR + 8 popc + 8 adds + 3
-    # for the best/second update = 27
-    ops = int(pv.sum()) * M * 9 + int(gated.sum()) * 27
+    window = matching.window_mask(uv, kp, radius, pv, kv)
+    gated = window & matching.octave_mask(po, ko, -1, 1)
+    # what these inputs need: binning the keypoints once (~12 ops each: two
+    # cell coordinates, a count, a prefix sum and a scatter), then a gate
+    # test only for the keypoints inside each window, as a perfect spatial
+    # index gives them: 2 x (sub, abs, compare) + 2 octave compares + valid
+    # = 9; per gated-in pair: 8 XOR + 8 popc + 8 adds + 3 for the
+    # best/second update = 27
+    ops = M * 12 + int(window.sum()) * 9 + int(gated.sum()) * 27
     return nbytes, ops
 
 
@@ -407,13 +519,16 @@ def k2_bound(a, kw, rounds=3, iters=6):
     K, R0, t0, uv, Xw, isig, valid = a
     B, N = uv.shape[0], uv.shape[1]
     stereo = "ur" in kw
-    nbytes = B * N * (12 + 8 + 4 + 1 + (4 if stereo else 0)) + B * 17 * 4
-    nbytes += B * (36 + 12 + 4) + B * N
-    # per row: a cost pass ~36 ops (transform 18, projection 10, chi2 5,
-    # gate 3); a Gauss-Newton pass ~200 (cost 31, weights 10, Jacobians 23,
-    # 21 + 6 weighted products and sums ~135). Per round: initial cost,
-    # iters x (GN + trial cost), reclassification.
-    per_row = rounds * (36 + iters * (200 + 36) + 36)
+    nbytes = B * N * (12 + 8 + 4 + 1 + (4 if stereo else 0))
+    nbytes += B * (16 + 36 + 12 + (4 if stereo else 0))  # K's four, R0, t0, bf
+    nbytes += B * (36 + 12 + 4) + B * N  # R, t, n, mask
+    # what the function needs: one sweep over the rows per Gauss-Newton
+    # iteration plus one per round, 21 at rounds=3, iters=6 (each trial
+    # pose's sweep gives both its cost and the next normal equations; the
+    # reclassification is folded into the next round's first sweep). A
+    # sweep is ~200 ops a row: chi2 31, weights 10, Jacobians 23, 21 + 6
+    # weighted products and sums ~135.
+    per_row = rounds * (1 + iters) * 200
     return nbytes, B * N * per_row
 
 
@@ -438,6 +553,10 @@ def phase_timing(step, args, rec, launches, errs, gpu, cfg_K):
                                             pk.pose_ba_plain(*a2, **kw2), "main path"))
 
     step_ms = time_ms(lambda: step(*args))
+    dev = a2[0].device
+    floor_ms = device_kernel_ms(lambda: pk.noop_launch(dev), ["noop_kernel"])["noop_kernel"]
+    check(floor_ms is not None, "the profiler saw no device time for an empty launch")
+    print(f"[timing] launch floor (device time of an empty kernel): {floor_ms:.5f} ms")
     rows = []
     specs = (
         ("K1", "orb_slam3_tpu_torch/csrc/match_kernel.cu",
@@ -451,21 +570,21 @@ def phase_timing(step, args, rec, launches, errs, gpu, cfg_K):
     )
     for name, src, repl, fn, plain, (nbytes, ops), kname in specs:
         ms = time_ms(fn)
+        enqueue_ms = host_ms(fn)
         plain_ms = time_ms(plain)
         b_ms, b_by = bound_ms(nbytes, ops)
-        try:
-            dev_ms = device_kernel_ms(fn, [kname])[kname]
-        except Exception as e:  # the profiler is optional: say why it is missing
-            print(f"[timing] profiler unavailable for {name}: {e}")
-            dev_ms = None
+        dev_ms = device_kernel_ms(fn, [kname])[kname]
+        check(dev_ms is not None, f"the profiler saw no device time for {name}")
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": launches[name], "max_abs_err": errs[name], "max_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "device_ms": dev_ms, "bytes": nbytes, "ops": ops,
+            "library_ms": None, "device_ms": dev_ms, "host_ms": enqueue_ms,
+            "launch_floor_ms": floor_ms, "bytes": nbytes, "ops": ops,
         })
-        print(f"[timing] {name}: {ms:.4f} ms per call (device {dev_ms}), plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        print(f"[timing] {name}: {ms:.4f} ms per call (device {dev_ms:.5f}, host enqueue "
+              f"{enqueue_ms:.5f}), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    rows[1]["cluster"] = pk.cluster_size(a2[3].shape[1])
     stages = stage_breakdown(step, args, *cfg_K)
     print(f"[timing] full step {step_ms:.3f} ms; stages {stages}")
     return {"kernels": rows, "step_ms": step_ms, "stages": stages, "gpu": gpu}

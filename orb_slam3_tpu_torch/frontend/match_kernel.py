@@ -37,16 +37,20 @@ def search_by_projection_plain(uv_pred, pred_octave, pred_desc, pred_valid,
     return idx.to(torch.int32), best, ok
 
 
-def _lib():
-    from ..kernels import build
+_FN = None
 
-    lib = build.load("match_kernel")
-    fn = lib.match_kernel_launch
-    if fn.argtypes is None:
+
+def _lib():
+    global _FN
+    if _FN is None:
+        from ..kernels import build
+
+        fn = build.load("match_kernel").match_kernel_launch
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, F, F, I, I, I, P, P, P, P]
         fn.restype = I
-    return fn
+        _FN = fn
+    return _FN
 
 
 def search_by_projection_kernel(uv_pred, pred_octave, pred_desc, pred_valid,
@@ -60,42 +64,38 @@ def search_by_projection_kernel(uv_pred, pred_octave, pred_desc, pred_valid,
     ok bool), each [N]; a row where nothing passes gives (0, BIG, False)."""
     args = (uv_pred, pred_octave, pred_desc, pred_valid,
             kp_xy, kp_octave, kp_desc, kp_valid, radius)
-    if uv_pred.device.type == "cpu":
+    dev = uv_pred.device
+    if dev.type == "cpu":
         return search_by_projection_plain(
             *args, max_dist=max_dist, ratio=ratio,
             level_lo=level_lo, level_hi=level_hi,
         )
-    if uv_pred.device.type != "cuda":
-        raise ValueError(f"search_by_projection_kernel: unsupported device {uv_pred.device}")
-    from ..kernels.build import check_tensor
+    if dev.type != "cuda":
+        raise ValueError(f"search_by_projection_kernel: unsupported device {dev}")
+    from ..kernels.build import check_aligned, check_args, raw_stream
 
-    dev = uv_pred.device
     n, m = uv_pred.shape[0], kp_xy.shape[0]
     f32, i32, u8, b = torch.float32, torch.int32, torch.uint8, torch.bool
-    for name, t, dtype, shape in (
+    check_args(dev, (
         ("uv_pred", uv_pred, f32, (n, 2)), ("pred_octave", pred_octave, i32, (n,)),
         ("pred_desc", pred_desc, u8, (n, 32)), ("pred_valid", pred_valid, b, (n,)),
         ("kp_xy", kp_xy, f32, (m, 2)), ("kp_octave", kp_octave, i32, (m,)),
         ("kp_desc", kp_desc, u8, (m, 32)), ("kp_valid", kp_valid, b, (m,)),
         ("radius", radius, f32, (n,)),
-    ):
-        check_tensor(name, t, dtype, shape, dev)
-    for name, t in (("pred_desc", pred_desc), ("kp_desc", kp_desc)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: must be 16-byte aligned (read as uint4)")
+    ))
+    check_aligned("pred_desc", pred_desc)
+    check_aligned("kp_desc", kp_desc)
 
     idx = torch.empty(n, dtype=i32, device=dev)
     dist = torch.empty(n, dtype=i32, device=dev)
     ok = torch.empty(n, dtype=b, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib()(
         uv_pred.data_ptr(), radius.data_ptr(), pred_octave.data_ptr(),
         pred_valid.data_ptr(), pred_desc.data_ptr(),
         kp_xy.data_ptr(), kp_octave.data_ptr(), kp_valid.data_ptr(),
-        kp_desc.data_ptr(), n, m, float(max_dist),
-        0.0 if ratio is None else float(ratio), int(ratio is not None),
-        int(level_lo), int(level_hi),
-        idx.data_ptr(), dist.data_ptr(), ok.data_ptr(), stream,
+        kp_desc.data_ptr(), n, m, max_dist,
+        0.0 if ratio is None else ratio, ratio is not None, level_lo, level_hi,
+        idx.data_ptr(), dist.data_ptr(), ok.data_ptr(), raw_stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"match_kernel launch failed with CUDA error {rc}")

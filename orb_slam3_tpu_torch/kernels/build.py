@@ -99,7 +99,7 @@ def build_all(names=None) -> float:
 
 def check_tensor(name, t, dtype, shape, device):
     """Raise unless `t` is what a kernel takes: on `device`, of `dtype` and
-    `shape`, contiguous. The wrappers call this before passing pointers."""
+    `shape`, contiguous."""
     if t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
     if t.dtype != dtype:
@@ -108,6 +108,31 @@ def check_tensor(name, t, dtype, shape, device):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def check_args(device, specs):
+    """`check_tensor` over (name, tensor, dtype, shape) specs, with one cheap
+    test per tensor on the path where all is well. The wrappers call this
+    before passing pointers."""
+    index = device.index
+    for name, t, dtype, shape in specs:
+        if (t.dtype is not dtype or t.get_device() != index or t.shape != shape
+                or not t.is_contiguous()):
+            check_tensor(name, t, dtype, shape, device)
+
+
+def check_aligned(name, t, nbytes=16):
+    """Raise unless `t`'s data starts on an `nbytes` boundary."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: must be {nbytes}-byte aligned (read as uint4)")
+
+
+def raw_stream(device) -> int:
+    """The handle of PyTorch's current stream on CUDA `device`, without
+    building a torch.cuda.Stream object."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -9,10 +9,10 @@ equations + lambda I solved by an unrolled Cholesky, Rodrigues retraction,
 acceptance when the gated cost sum(min(chi2, gate) * mask) drops, and
 mask = (chi2 < gate) & valid after each round.
 
-Batched: problem b of B is one CUDA block (csrc/pose_kernel.cu). `pose_ba`
-launches the kernel for CUDA tensors and runs `pose_ba_plain` (the same
-arithmetic, vectorised over rows) for CPU tensors only. `launches` counts
-kernel launches.
+Batched: problem b of B is one thread-block cluster of `cluster_size(N)`
+CTAs (csrc/pose_kernel.cu). `pose_ba` launches the kernel for CUDA tensors
+and runs `pose_ba_plain` (the same arithmetic, vectorised over rows) for CPU
+tensors only. `launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -211,59 +211,81 @@ def pose_ba_plain(K, R0, t0, uv, Xw, inv_sigma2, valid, ur=None, bf=None,
     return R, t, inl, inl.sum(dim=-1).to(torch.int32)
 
 
-def _lib():
-    from ..kernels import build
+_LIB = None
+DELTA_MONO = math.sqrt(CHI2_MONO)
 
-    lib = build.load("pose_kernel")
-    fn = lib.pose_kernel_launch
-    if fn.argtypes is None:
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from ..kernels import build
+
+        lib = build.load("pose_kernel")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, F, F, F, P, P, P, P, P]
-        fn.restype = I
-    return fn
+        lib.pose_kernel_launch.argtypes = [P, I, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                           F, F, F, P, P, P, P, P]
+        lib.pose_kernel_launch.restype = I
+        lib.pose_kernel_cluster.argtypes = [I]
+        lib.pose_kernel_cluster.restype = I
+        lib.noop_kernel_launch.argtypes = [P]
+        lib.noop_kernel_launch.restype = I
+        _LIB = lib
+    return _LIB
+
+
+def cluster_size(N: int) -> int:
+    """CTAs in the thread-block cluster K2 launches per problem of N rows."""
+    return _lib().pose_kernel_cluster(int(N))
+
+
+def noop_launch(device) -> None:
+    """Launch an empty kernel on `device`'s current stream: its device time
+    is the floor of any launch (not counted in `launches`)."""
+    from ..kernels.build import raw_stream
+
+    rc = _lib().noop_kernel_launch(raw_stream(device))
+    if rc != 0:
+        raise RuntimeError(f"noop_kernel launch failed with CUDA error {rc}")
 
 
 def pose_ba(K, R0, t0, uv, Xw, inv_sigma2, valid, ur=None, bf=None,
             rounds: int = 3, iters: int = 6):
     """Batched motion-only pose BA; arguments and results as `pose_ba_plain`.
-    CUDA tensors launch K2 (one block per problem); CPU tensors run the
-    plain version."""
-    if R0.device.type == "cpu":
+    CUDA tensors launch K2 (one thread-block cluster per problem); CPU
+    tensors run the plain version."""
+    dev = R0.device
+    if dev.type == "cpu":
         return pose_ba_plain(K, R0, t0, uv, Xw, inv_sigma2, valid, ur, bf,
                              rounds=rounds, iters=iters)
-    if R0.device.type != "cuda":
-        raise ValueError(f"pose_ba: unsupported device {R0.device}")
-    from ..kernels.build import check_tensor
+    if dev.type != "cuda":
+        raise ValueError(f"pose_ba: unsupported device {dev}")
+    from ..kernels.build import check_args, raw_stream
 
-    dev = R0.device
     B, N = uv.shape[0], uv.shape[1]
     stereo = ur is not None
     f32 = torch.float32
     if K.ndim != 2 or K.shape[1] < 4:
         raise ValueError("K: expected [B, >=4] (fx, fy, cx, cy, ...)")
-    for name, t, dtype, shape in (
+    specs = (
         ("K", K, f32, (B, K.shape[1])), ("R0", R0, f32, (B, 3, 3)),
         ("t0", t0, f32, (B, 3)), ("uv", uv, f32, (B, N, 2)), ("Xw", Xw, f32, (B, N, 3)),
         ("inv_sigma2", inv_sigma2, f32, (B, N)), ("valid", valid, torch.bool, (B, N)),
-    ) + ((("ur", ur, f32, (B, N)), ("bf", bf, f32, (B,))) if stereo else ()):
-        check_tensor(name, t, dtype, shape, dev)
+    )
     if stereo:
-        bf_col = bf[:, None]
-    else:
-        bf_col = torch.zeros((B, 1), dtype=f32, device=dev)
-    sc = torch.cat([K[:, :4], R0.reshape(B, 9), t0, bf_col], dim=1).contiguous()
+        specs += (("ur", ur, f32, (B, N)), ("bf", bf, f32, (B,)))
+    check_args(dev, specs)
 
     R = torch.empty((B, 3, 3), dtype=f32, device=dev)
     t = torch.empty((B, 3), dtype=f32, device=dev)
     inl = torch.empty((B, N), dtype=torch.bool, device=dev)
     n = torch.empty((B,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib()(
-        sc.data_ptr(), Xw.data_ptr(), uv.data_ptr(), inv_sigma2.data_ptr(),
-        valid.data_ptr(), ur.data_ptr() if stereo else None,
-        B, N, int(rounds), int(iters), int(stereo),
-        CHI2_MONO, CHI2_STEREO, math.sqrt(CHI2_MONO),
-        R.data_ptr(), t.data_ptr(), inl.data_ptr(), n.data_ptr(), stream,
+    rc = _lib().pose_kernel_launch(
+        K.data_ptr(), K.shape[1], R0.data_ptr(), t0.data_ptr(),
+        bf.data_ptr() if stereo else None,
+        Xw.data_ptr(), uv.data_ptr(), inv_sigma2.data_ptr(), valid.data_ptr(),
+        ur.data_ptr() if stereo else None,
+        B, N, int(rounds), int(iters), stereo, CHI2_MONO, CHI2_STEREO, DELTA_MONO,
+        R.data_ptr(), t.data_ptr(), inl.data_ptr(), n.data_ptr(), raw_stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"pose_kernel launch failed with CUDA error {rc}")

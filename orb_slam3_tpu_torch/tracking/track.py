@@ -20,6 +20,29 @@ from ..ops import lie
 from . import pose_kernel
 
 
+_SCALARS: dict = {}
+
+
+def _scalar(value: float, device) -> torch.Tensor:
+    """A 0-dim f32 tensor of `value` on `device`, made once per (value,
+    device) so that a call pays no host-to-device copy for it."""
+    key = (float(value), device)
+    t = _SCALARS.get(key)
+    if t is None:
+        t = _SCALARS[key] = torch.tensor(value, dtype=torch.float32, device=device)
+    return t
+
+
+def _log_scale(device) -> torch.Tensor:
+    """log(1.2) as a 0-dim f32 tensor, computed once per device on that
+    device (the same bits as computing it each call)."""
+    key = ("log", device)
+    t = _SCALARS.get(key)
+    if t is None:
+        t = _SCALARS[key] = torch.log(_scalar(1.2, device))
+    return t
+
+
 def _project_points(kind, K, R, t, X):
     Xc = lie.se3_apply(R, t, X)
     return cam.project(kind, K, Xc), Xc[..., 2]
@@ -55,7 +78,10 @@ def pose_optimize_stereo(kind: int, K, bf, R0, t0, uv, ur, Xw, inv_sigma2,
     (g2o::EdgeStereoSE3ProjectXYZOnlyPose); rows with ur < 0 are mono."""
     if kind != cam.PINHOLE:
         _no_kernel(kind)
-    bf_t = torch.as_tensor(bf, dtype=torch.float32, device=R0.device).reshape(1)
+    if torch.is_tensor(bf):  # no copy when it already lies on the device as f32
+        bf_t = bf.to(device=R0.device, dtype=torch.float32).reshape(1)
+    else:
+        bf_t = _scalar(bf, R0.device).reshape(1)
     R, t, inl, n = pose_kernel.pose_ba(
         K[None, :4].contiguous(), R0[None], t0[None], uv[None], Xw[None],
         inv_sigma2[None], valid[None], ur=ur[None], bf=bf_t,
@@ -91,7 +117,7 @@ def match_local_map(kind: int, K, R, t, lm_pos, lm_desc, lm_valid,
     # predicted octave from distance, in f32 like the JAX package
     ratio = torch.clamp(lm_max_dist, min=1e-9) / torch.clamp(dist, min=1e-9)
     n_levels = scale_factors.shape[0]
-    log_s = torch.log(torch.tensor(1.2, dtype=torch.float32, device=ratio.device))
+    log_s = _log_scale(ratio.device)
     pred_oct = torch.clamp(
         torch.ceil(torch.log(ratio) / log_s), 0, n_levels - 1
     ).to(torch.int32)

@@ -63,6 +63,70 @@ def test_k1_kernel_matches_plain(cuda, N, M):
     assert ok.sum() > 0.3 * min(N, M)
 
 
+def _k1_edge_case(name, seed=3, N=300, M=250):
+    """One of the binning's edge cases, as (args, ratio)."""
+    args = [a.numpy().copy() for a in _k1_case(seed, N, M)]
+    uv, po, pd, pv, kp, ko, kd, kv, radius = args
+    ratio = 0.8
+    if name == "far_keypoints":
+        # keypoints far outside the frame stretch the grid; a landmark sits on one
+        kp[-20:] = np.random.default_rng(seed).uniform(-1e5, 1e5, (20, 2))
+        uv[5], pd[5], po[5], pv[5], kv[M - 7], ko[M - 7] = kp[M - 7], kd[M - 7], 0, True, True, 0
+    elif name == "border_windows":
+        # keypoints exactly on the window's edge (|dx| == r passes the gate)
+        r = radius[:40]
+        kp[:40, 0] = uv[:40, 0] + np.where(np.arange(40) % 2, r, -r)
+        kp[:40, 1] = uv[:40, 1] + np.where(np.arange(40) % 3 == 0, r, 0.0)
+        kp[:40] = np.where((np.abs(kp[:40] - uv[:40]) <= r[:, None]), kp[:40], uv[:40])
+    elif name == "large_radius":
+        radius[:] = 250.0
+    elif name == "one_cell":
+        kp[:] = 320.0 + np.random.default_rng(seed).uniform(0, 1e-3, (M, 2))
+        uv[:] = 320.0
+    elif name == "tie_in_later_cell":
+        # landmark 0 sees two copies of one descriptor; the lower index lies
+        # lower in the image, in a grid row visited after the higher index's
+        ratio = None
+        kp[:, 1] = np.random.default_rng(seed).uniform(0, 640, M)
+        uv[0] = (320.0, 300.0)
+        radius[0] = 40.0
+        kv[[2, 9]] = True
+        kd[[2, 9]] = pd[0]
+        ko[[2, 9]] = po[0]
+        kp[2] = (320.0, 330.0)
+        kp[9] = (320.0, 270.0)
+        kp[0] = (5.0, 5.0)  # keypoint 0 shares the descriptor: keep it away
+        pv[0] = True
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in args], ratio
+
+
+K1_EDGE = ["far_keypoints", "border_windows", "large_radius", "one_cell", "tie_in_later_cell"]
+
+
+@pytest.mark.parametrize("name", K1_EDGE)
+def test_k1_binning_edge_cases(cuda, name):
+    """Exact equality everywhere, not only where ok."""
+    args, ratio = _k1_edge_case(name)
+    kw = dict(max_dist=100, ratio=ratio, level_lo=-1, level_hi=1)
+    ref = mk.search_by_projection_plain(*args, **kw)
+    got = [x.cpu() for x in mk.search_by_projection_kernel(*[a.to(cuda) for a in args], **kw)]
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    if name == "tie_in_later_cell":
+        assert (got[0][0].item(), got[1][0].item(), bool(got[2][0])) == (2, 0, True)
+
+
+@pytest.mark.parametrize("N", [5, 37, 2048])
+def test_k1_no_keypoints(cuda, N):
+    args = [a.to(cuda) for a in _k1_case(0, N, 4)]
+    for i in (4, 5, 6, 7):  # M = 0
+        args[i] = args[i][:0].contiguous()
+    idx, dist, ok = (x.cpu() for x in mk.search_by_projection_kernel(
+        *args, max_dist=100, ratio=0.8, level_lo=-1, level_hi=1))
+    assert (idx == 0).all() and (dist == mk.BIG).all() and not ok.any()
+
+
 def _k2_case(B, N, stereo, seed):
     rng = np.random.default_rng(seed)
     Xw = np.concatenate([rng.uniform(-3, 3, (B, N, 2)), rng.uniform(4, 9, (B, N, 1))], 2)
@@ -82,8 +146,14 @@ def _k2_case(B, N, stereo, seed):
     return args, kw
 
 
-@pytest.mark.parametrize("B,N,stereo", [(1, 300, False), (1, 256, True), (1, 2048, False),
-                                        (4, 2048, True), (3, 5, False)])
+# N: cluster sizes 1 (5, 256), 2 (257) and 8 (2048, 2049: a ragged edge),
+# and 9000 rows, past the 8 x 1024 rows staged in shared memory
+K2_CASES = [(1, 300, False), (1, 256, True), (1, 2048, False), (4, 2048, True),
+            (3, 5, False)] + [(B, N, stereo) for N in (5, 256, 257, 2048, 2049, 9000)
+                              for B in (1, 4) for stereo in (False, True)]
+
+
+@pytest.mark.parametrize("B,N,stereo", K2_CASES)
 def test_k2_kernel_matches_plain(cuda, B, N, stereo):
     args, kw = _k2_case(B, N, stereo, seed=B * 100 + N)
     R_r, t_r, m_r, n_r = pk.pose_ba_plain(*args, **kw)
@@ -93,9 +163,26 @@ def test_k2_kernel_matches_plain(cuda, B, N, stereo):
     torch.cuda.synchronize()
     assert pk.launches == before + 1
     assert torch.equal(n_g, n_r) and torch.equal(m_g, m_r)
-    # block reductions sum rows in another order than torch.sum
+    # cluster reductions sum rows in another order than torch.sum
     torch.testing.assert_close(R_g, R_r, atol=1e-5, rtol=0)
     torch.testing.assert_close(t_g, t_r, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("N,C", [(5, 1), (256, 1), (257, 2), (2048, 8), (2049, 8), (9000, 8)])
+def test_k2_cluster_size(cuda, N, C):
+    assert pk.cluster_size(N) == C
+
+
+@pytest.mark.parametrize("B,N,stereo", [(1, 2048, False), (4, 2049, True), (1, 9000, True)])
+def test_k2_is_bitwise_deterministic(cuda, B, N, stereo):
+    """The cluster sums partials in rank order: two calls give the same bits."""
+    args, kw = _k2_case(B, N, stereo, seed=7)
+    args = [a.to(cuda) for a in args]
+    kw = {k: v.to(cuda) for k, v in kw.items()}
+    first = [x.cpu() for x in pk.pose_ba(*args, **kw)]
+    second = [x.cpu() for x in pk.pose_ba(*args, **kw)]
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
