@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from . import device as device_mod
+from .atlas import state as atlas_state
 from .frontend import orb
 
 
@@ -75,3 +76,32 @@ def pose(R, t, device=None):
     """Pose R [3,3], t [3] -> float32 tensors."""
     dev = device_mod.resolve(device)
     return _f32(R, dev), _f32(t, dev)
+
+
+def _port_array(a, dev):
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return _bool(a, dev)
+    if a.dtype == np.uint8:
+        return _u8(a, dev)
+    if np.issubdtype(a.dtype, np.integer):
+        return _i32(a, dev)
+    return _f32(a, dev)
+
+
+def map_state(s, device=None) -> atlas_state.MapState:
+    """A JAX MapState (any object with its fields, as arrays) -> the port's
+    MapState: floats f32, indices and counters int32, descriptors uint8,
+    flags bool."""
+    dev = device_mod.resolve(device)
+    return atlas_state.MapState(**{
+        f.name: _port_array(getattr(s, f.name), dev)
+        for f in dataclasses.fields(atlas_state.MapState)
+    })
+
+
+def map_state_arrays(s) -> dict:
+    """The reverse: the port's MapState -> {field name: numpy array}, ready
+    for the JAX MapState's constructor."""
+    return {f.name: getattr(s, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(s)}

@@ -1,4 +1,4 @@
-"""Entry point of the port: the per-frame visual tracking step.
+"""Entry points of the port.
 
 `entry()` is the counterpart of the JAX package's `__graft_entry__.entry()`:
 one full tracking step (ORB extraction, local-map projection matching
@@ -7,13 +7,20 @@ width, 752x480 with 1000 features over 8 levels and a 2048-landmark local
 map. It returns `(track_step, example_args)` on CUDA unless the caller
 passes `device="cpu"`.
 
+`bootstrap(frames)` is the monocular map bootstrap at the same width with
+the tracker's defaults (`tracker_config`): two-view initialization into the
+Atlas, the initial Schur BA, then the fused per-frame tracking of the next
+frames against the 8192-landmark arena through K1 and K2.
+
 `blob_frame` and `make_scene` build a self-consistent tracking scene from
 a seed: landmarks lifted from a frame's own keypoints plus random map slots,
-and a perturbed start pose. The frame landmarks must all be matched and the
-true pose recovered.
+and a perturbed start pose. `plane_sequence` renders the textured-plane
+scene of tests/synthetic_scene.py along its orbit, in numpy.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -22,7 +29,7 @@ from . import device as device_mod
 from .frontend import camera as cam
 from .frontend import orb
 from .ops import lie
-from .tracking import track
+from .tracking import track, tracker
 
 FULL_WH = (752, 480)
 FULL_L = 2048
@@ -148,3 +155,202 @@ def make_scene(xy, octave, desc, valid, K, n_levels: int, L: int,
         R0=R0.astype(f), t0=t0.astype(f),
         R_true=np.eye(3, dtype=f), t_true=np.zeros(3, f), n_frame=n_frame,
     )
+
+
+# ---------------------------------------------------------------------------
+# The monocular map bootstrap (two-view init -> Atlas -> BA -> tracking)
+# ---------------------------------------------------------------------------
+
+FULL_K = (450.0, 450.0, 376.0, 240.0)
+
+
+def tracker_config(device=None, img_wh=FULL_WH, K=FULL_K, **fields):
+    """TrackerConfig at the flagship width on `device` (default CUDA): the
+    JAX TrackerConfig defaults (kmax 128, lmax 8192, window 8, init BA of
+    20 iterations, 80 init matches, 15 inliers, radii 15 / 4 px) with
+    OrbConfig(1000, 8) at 752x480 and K = (450, 450, 376, 240). `fields`
+    override any of them."""
+    fields.setdefault("orb", orb.OrbConfig(n_features=1000, n_levels=8))
+    return tracker.TrackerConfig(K=cam.make_pinhole(*K, device=device),
+                                 img_wh=tuple(img_wh), **fields)
+
+
+def bootstrap(frames, cfg=None, device=None, n_track: int = 8,
+              max_init_frames: int = 10, timer=tracker.no_timer):
+    """Bootstrap a monocular map from `frames` (a sequence of [H, W] images)
+    on `device` (default CUDA): extract each frame, call
+    initialize_monocular frame by frame (the frame index seeds the
+    two-view draw, as the JAX tracker's frame count does) keeping the
+    reference frame as the tracker does, then track the next `n_track`
+    frames with track_frame. A frame with fewer than min_inliers inliers
+    ends the run (relocalization comes with a later slice).
+
+    Returns a dict: init (InitResult), init_frame, feats (per frame),
+    frames_tracked, and track_sequence's poses [(R, t)], n_inliers, outs
+    (track_frame outputs), map (with the tracked frames' visible / found
+    counts added) and lost."""
+    if cfg is None:
+        cfg = tracker_config(device)
+    dev = cfg.K.device
+    feats = [orb.extract(torch.as_tensor(np.asarray(f), dtype=torch.float32, device=dev),
+                         cfg.orb) for f in frames]
+    return bootstrap_features(feats, cfg, n_track=n_track,
+                              max_init_frames=max_init_frames, timer=timer)
+
+
+def bootstrap_features(feats, cfg, n_track: int = 8, max_init_frames: int = 10,
+                       timer=tracker.no_timer):
+    """`bootstrap` on features already extracted (on cfg.K's device)."""
+    s = tracker.empty_map(cfg, device=cfg.K.device)
+    init_ref, res, i = None, None, 0
+    for i in range(min(max_init_frames, len(feats))):
+        res = tracker.initialize_monocular(cfg, s, init_ref, feats[i], float(i), seed=i,
+                                           timer=timer)
+        init_ref = res.init_ref
+        if res.success:
+            break
+    out = dict(init=res, init_frame=i, feats=feats, frames_tracked=[], poses=[],
+               n_inliers=[], outs=[], map=None, lost=False)
+    if res is not None and res.success:
+        out.update(track_sequence(cfg, res, feats[i + 1:i + 1 + n_track], timer=timer))
+        out["frames_tracked"] = list(range(i + 1, i + 1 + len(out["n_inliers"])))
+    return out
+
+
+def track_sequence(cfg, init, feats, timer=tracker.no_timer):
+    """Track `feats` frame by frame against the map of a successful
+    InitResult, as the tracker's fused path does: constant-velocity
+    prediction (dropped when the widened retry found it poisoned), the
+    previous frame's tracked mask, and the map's visible / found counts
+    updated after each frame. One host read per frame (n, vel_poisoned)
+    besides the two of track_frame_visual. Stops at the first frame with
+    fewer than min_inliers inliers.
+
+    Returns a dict: poses [(R, t)], n_inliers, outs, map, lost."""
+    s = init.map
+    R_last, t_last = init.R, init.t
+    velocity, tracked, last_inliers = None, None, 0
+    out = dict(poses=[], n_inliers=[], outs=[], map=s, lost=False)
+    for f in feats:
+        with timer("track_frame"):
+            o = tracker.track_frame(cfg, s, f, init.kf1, R_last, t_last, velocity=velocity,
+                                    tracked=tracked, last_inliers=last_inliers)
+            n, poisoned = (int(v) for v in o["scal"][:2].cpu())
+        out["outs"].append(o)
+        out["n_inliers"].append(n)
+        if n < cfg.min_inliers:
+            out["lost"] = True
+            break
+        out["poses"].append((o["R"], o["t"]))
+        velocity = None if poisoned else (o["Rv"], o["tv"])
+        R_last, t_last, tracked, last_inliers = o["R"], o["t"], o["tracked"], n
+        s = dataclasses.replace(s, lm_visible=s.lm_visible + o["vis32"],
+                                lm_found=s.lm_found + o["fnd32"])
+    out["map"] = s
+    return out
+
+
+def _blur3(img, sigma: float = 0.8):
+    """3x3 Gaussian with reflect-101 borders (cv2.GaussianBlur((3, 3), sigma))."""
+    w = np.exp(-np.array([1.0, 0.0, 1.0]) / (2.0 * sigma * sigma))
+    w = (w / w.sum()).astype(np.float32)
+    p = np.pad(img, 1, mode="reflect")
+    rows = w[0] * p[:, :-2] + w[1] * p[:, 1:-1] + w[2] * p[:, 2:]
+    return w[0] * rows[:-2] + w[1] * rows[1:-1] + w[2] * rows[2:]
+
+
+def plane_texture(seed: int, size: int = 1024, blobs: int = 4000):
+    """Blob texture of a scene plane, drawn like tests/synthetic_scene.py's
+    make_texture (same draws), blurred by _blur3."""
+    rng = np.random.default_rng(seed)
+    tex = np.zeros((size, size), np.float32)
+    xs = rng.integers(0, size - 14, blobs)
+    ys = rng.integers(0, size - 14, blobs)
+    for x, y in zip(xs, ys):
+        w, h = rng.integers(4, 14, 2)
+        tex[y:y + h, x:x + w] = rng.uniform(40, 255)
+    return _blur3(tex)
+
+
+def plane_scene(seed: int = 0):
+    """The planes of tests/synthetic_scene.PlaneScene: a far plane at z = 6
+    and four near patches at z ~ U[4.2, 5.2], each with its texture."""
+    planes = [dict(z=6.0, x0=-6.0, x1=8.0, y0=-4.5, y1=4.5, tex=plane_texture(seed))]
+    rng = np.random.default_rng(seed + 7)
+    for j, (x0, x1, y0, y1) in enumerate([(-1.5, 0.2, -0.8, 0.6), (1.2, 2.8, 0.2, 1.6),
+                                          (3.0, 4.6, -1.6, -0.3), (5.0, 6.6, -0.5, 0.9)]):
+        planes.append(dict(z=float(rng.uniform(4.2, 5.2)), x0=x0, x1=x1, y0=y0, y1=y1,
+                           tex=plane_texture(seed + 1 + j)))
+    return planes
+
+
+def _plane_hits(planes, K, img_wh, R_cw, t_cw):
+    """Per plane: (plane, depth along each pixel's ray, texture u, v,
+    inside) for the camera Tcw = (R_cw, t_cw)."""
+    w, h = img_wh
+    fx, fy, cx, cy = K[:4]
+    us, vs = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+    rays = np.stack([(us - cx) / fx, (vs - cy) / fy, np.ones_like(us)], -1)
+    R_wc = np.asarray(R_cw, np.float64).T
+    c = -R_wc @ np.asarray(t_cw, np.float64)
+    rays_w = rays @ R_wc.T
+    for pl in planes:
+        size = pl["tex"].shape[0]
+        rz = rays_w[..., 2]
+        lam = (pl["z"] - c[2]) / np.where(np.abs(rz) < 1e-9, 1e-9, rz)
+        tu = (c[0] + lam * rays_w[..., 0] - pl["x0"]) / (pl["x1"] - pl["x0"]) * (size - 1)
+        tv = (c[1] + lam * rays_w[..., 1] - pl["y0"]) / (pl["y1"] - pl["y0"]) * (size - 1)
+        inside = (lam > 0) & (tu >= 0) & (tu <= size - 1) & (tv >= 0) & (tv <= size - 1)
+        yield pl, lam, tu, tv, inside
+
+
+def render_planes(planes, K, img_wh, R_cw, t_cw):
+    """Render the planes seen from Tcw = (R_cw, t_cw): each pixel's ray is
+    intersected with every plane (later planes drawn over earlier ones, as
+    PlaneScene.render does) and the texture sampled bilinearly."""
+    w, h = img_wh
+    img = np.zeros((h, w), np.float32)
+    for pl, _, tu, tv, inside in _plane_hits(planes, K, img_wh, R_cw, t_cw):
+        tex = pl["tex"]
+        size = tex.shape[0]
+        u0 = np.clip(np.floor(tu), 0, size - 2).astype(np.int64)
+        v0 = np.clip(np.floor(tv), 0, size - 2).astype(np.int64)
+        a = np.clip(tu - u0, 0.0, 1.0)
+        b = np.clip(tv - v0, 0.0, 1.0)
+        val = ((1 - a) * (1 - b) * tex[v0, u0] + a * (1 - b) * tex[v0, u0 + 1]
+               + (1 - a) * b * tex[v0 + 1, u0] + a * b * tex[v0 + 1, u0 + 1])
+        img = np.where(inside, val.astype(np.float32), img)
+    return img
+
+
+def plane_depth(planes, K, img_wh, R_cw, t_cw):
+    """[H, W] depth (camera z; rays have unit z) of the surface
+    render_planes draws at each pixel, 0 where there is none
+    (PlaneScene.render_with_depth)."""
+    w, h = img_wh
+    depth = np.zeros((h, w), np.float32)
+    for _, lam, _, _, inside in _plane_hits(planes, K, img_wh, R_cw, t_cw):
+        depth = np.where(inside, lam.astype(np.float32), depth)
+    return depth
+
+
+def orbit_trajectory(n_frames: int, radius=0.04, advance=0.035, yaw_rate=0.004):
+    """tests/synthetic_scene.orbit_trajectory: sideways travel along +x with a
+    slight yaw. Returns (R_cw [N,3,3], t_cw [N,3]) as float64 numpy."""
+    Rs, ts = [], []
+    for i in range(n_frames):
+        yaw = yaw_rate * i
+        cy_, sy_ = np.cos(yaw), np.sin(yaw)
+        R_wc = np.array([[cy_, 0.0, sy_], [0.0, 1.0, 0.0], [-sy_, 0.0, cy_]])
+        c = np.array([advance * i, radius * np.sin(0.15 * i), 0.1 * np.sin(0.05 * i)])
+        Rs.append(R_wc.T)
+        ts.append(-R_wc.T @ c)
+    return np.stack(Rs), np.stack(ts)
+
+
+def plane_sequence(n_frames: int, img_wh=FULL_WH, K=FULL_K, seed: int = 0):
+    """(frames, R_cw, t_cw, planes): the PlaneScene rendered along the orbit."""
+    planes = plane_scene(seed)
+    R, t = orbit_trajectory(n_frames)
+    frames = [render_planes(planes, K, img_wh, R[i], t[i]) for i in range(n_frames)]
+    return frames, R, t, planes

@@ -53,8 +53,12 @@ def vee(W):
 
 
 def _theta(w):
-    """(theta, theta2, small, theta guarded, theta2 guarded)."""
-    theta2 = torch.sum(w * w, dim=-1)
+    """(theta, theta2, small, theta guarded, theta2 guarded), each [..., 1].
+
+    The trailing unit dimension is deliberate: under torch.func.jacfwd a
+    0-dim tensor combined with a Python scalar gets a float64 tangent
+    (torch 2.13), which then breaks the f32 matmuls of se3_exp."""
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)
     theta = torch.sqrt(theta2 + _EPS * _EPS) - _EPS
     small, th2_s = _safe(theta2, 1e-12)
     _, th_s = _safe(theta, 1e-6)
@@ -68,7 +72,7 @@ def so3_exp(w):
     W2 = W @ W
     a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(th_s) / th_s)
     b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(th_s)) / th2_s)
-    return _eye_like(W) + a[..., None, None] * W + b[..., None, None] * W2
+    return _eye_like(W) + a[..., None] * W + b[..., None] * W2
 
 
 def so3_log(R):
@@ -117,7 +121,7 @@ def so3_left_jacobian(w):
     c = torch.where(
         small, 1.0 / 6.0 - theta2 / 120.0, (th_s - torch.sin(th_s)) / th3_s
     )
-    return _eye_like(W) + b[..., None, None] * W + c[..., None, None] * W2
+    return _eye_like(W) + b[..., None] * W + c[..., None] * W2
 
 
 def _left_jacobian_inv(w):
@@ -129,7 +133,7 @@ def _left_jacobian_inv(w):
         1.0 / 12.0 + theta2 / 720.0,
         (1.0 / th2_s) - (1.0 + torch.cos(th_s)) / (2.0 * th_s * torch.sin(th_s)),
     )
-    return _eye_like(W) - 0.5 * W + cot_term[..., None, None] * W2
+    return _eye_like(W) - 0.5 * W + cot_term[..., None] * W2
 
 
 def normalize_rotation(R):

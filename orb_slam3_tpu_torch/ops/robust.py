@@ -24,3 +24,10 @@ def huber_weight(e2, delta):
     1 where e <= delta, delta / e beyond."""
     e = torch.sqrt(torch.clamp(e2, min=1e-18))
     return torch.where(e <= delta, torch.ones_like(e), delta / e)
+
+
+def huber_rho(e2, delta):
+    """Huber cost as g2o applies it: e2 where e <= delta, else
+    2 delta e - delta^2."""
+    e = torch.sqrt(torch.clamp(e2, min=1e-18))
+    return torch.where(e <= delta, e2, 2.0 * delta * e - delta * delta)

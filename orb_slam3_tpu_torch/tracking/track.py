@@ -1,23 +1,31 @@
-"""Per-frame tracking: motion-only pose optimisation and local-map matching
-(port of the slice-1 subset of orb_slam3_tpu/tracking/track.py).
+"""Per-frame tracking (port of orb_slam3_tpu/tracking/track.py).
 
 - `pose_optimize` / `pose_optimize_stereo`: motion-only BA with staged
   outlier gating (Optimizer::PoseOptimization, `Optimizer.cc:814-1113`;
   3 rounds x 6 iterations). For the pinhole camera they run kernel K2
   (pose_kernel.py) on CUDA tensors and its plain version on CPU tensors.
+- `pose_optimize_two_cam`: the same over a non-rectified stereo rig, plain
+  torch ops (no kernel in the JAX package either).
 - `match_local_map`: frustum cull and projection of the local-map snapshot,
   then the windowed descriptor search (SearchLocalPoints,
   `Tracking.cc:2949-3061,3343`), which runs kernel K1 on CUDA tensors.
+- `track_frame_visual`: the fused per-frame step built from those two.
+- `local_map_mask`: the covisibility-local landmark set tracking matches
+  against.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.func import jacfwd
 
 from ..frontend import camera as cam
 from ..frontend import matching
-from ..ops import lie
+from ..ops import lie, robust
+from ..ops.scatter import mark
 from . import pose_kernel
+
+NO_LM = -1
 
 
 _SCALARS: dict = {}
@@ -129,3 +137,254 @@ def match_local_map(kind: int, K, R, t, lm_pos, lm_desc, lm_valid,
         max_dist=matching.TH_HIGH, ratio=0.8, level_lo=-1, level_hi=1,
     )
     return idx, ok, visible, uv_pred, d
+
+
+def pose_optimize_two_cam(kind: int, K_l, K_r, R_rl, t_rl, R0, t0,
+                          uv_l, Xw_l, info_l, valid_l,
+                          uv_r, Xw_r, info_r, valid_r,
+                          rounds: int = 3, iters: int = 6):
+    """Motion-only BA over the two cameras of a non-rectified stereo rig:
+    left-camera edges plus right-camera edges through the fixed extrinsics
+    X_r = R_rl X_l + t_rl (PoseOptimization with the ToBody edges,
+    `Optimizer.cc:871-977`). Plain torch ops (the JAX package has no kernel
+    for it): Jacobians by jacfwd, the 6x6 step by solve_ex, whose non-finite
+    result becomes a zero step. Returns (R, t, inlier_l, inlier_r, n)."""
+    delta = robust.CHI2_2DOF ** 0.5
+    gate = robust.CHI2_2DOF
+    info = torch.cat([info_l, info_r])
+
+    def residuals(R, t):
+        Xl = lie.se3_apply(R, t, Xw_l)
+        rl = uv_l - cam.project(kind, K_l, Xl)
+        Xr = lie.se3_apply(R, t, Xw_r) @ R_rl.T + t_rl
+        rr = uv_r - cam.project(kind, K_r, Xr)
+        return rl, rr, Xl[:, 2], Xr[:, 2]
+
+    def chi2_of(R, t):
+        rl, rr, zl, zr = residuals(R, t)
+        c2l = torch.sum(rl * rl, dim=-1) * info_l
+        c2r = torch.sum(rr * rr, dim=-1) * info_r
+        return torch.where(zl > 0, c2l, 1e9), torch.where(zr > 0, c2r, 1e9)
+
+    def gated_cost(R, t, ml, mr):
+        c2l, c2r = chi2_of(R, t)
+        return (torch.sum(torch.clamp(c2l, max=gate) * ml)
+                + torch.sum(torch.clamp(c2r, max=gate) * mr))
+
+    eye6 = torch.eye(6, dtype=torch.float32, device=R0.device)
+    zero6 = torch.zeros(6, dtype=torch.float32, device=R0.device)
+    R, t = R0, t0
+    ml, mr = valid_l.to(torch.float32), valid_r.to(torch.float32)
+    for round_i in range(rounds):
+        lam = torch.tensor(1e-3, dtype=torch.float32, device=R0.device)
+        c_cur = gated_cost(R, t, ml, mr)
+        mask = torch.cat([ml, mr])
+        for _ in range(iters):
+            def res_flat(dxi, R=R, t=t):
+                Rn, tn = lie.se3_lplus(R, t, dxi)
+                rl, rr, _, _ = residuals(Rn, tn)
+                return torch.cat([rl.reshape(-1), rr.reshape(-1)])
+
+            r2 = res_flat(zero6).reshape(-1, 2)
+            J2 = jacfwd(res_flat)(zero6).reshape(-1, 2, 6)
+            c2 = torch.sum(r2 * r2, dim=-1) * info
+            w_rob = robust.huber_weight(c2, delta) if round_i < 2 else torch.ones_like(c2)
+            wJ = J2 * (w_rob * info * mask)[:, None, None]
+            H = torch.einsum("nri,nrj->ij", J2, wJ)
+            g = torch.einsum("nri,nr->i", wJ, r2)
+            dxi = torch.linalg.solve_ex(H + lam * eye6, -g)[0]
+            dxi = torch.where(torch.isfinite(dxi).all(), dxi, 0.0)
+            Rn, tn = lie.se3_lplus(R, t, dxi)
+            c_new = gated_cost(Rn, tn, ml, mr)
+            accept = c_new < c_cur
+            R, t = torch.where(accept, Rn, R), torch.where(accept, tn, t)
+            lam = torch.where(accept, lam * 0.5, lam * 4.0)
+            c_cur = torch.where(accept, c_new, c_cur)
+        c2l, c2r = chi2_of(R, t)
+        ml = torch.where(c2l < gate, valid_l.to(torch.float32), 0.0)
+        mr = torch.where(c2r < gate, valid_r.to(torch.float32), 0.0)
+    return R, t, ml > 0, mr > 0, (ml > 0).sum() + (mr > 0).sum()
+
+
+def track_frame_visual(kind: int, K, bf,
+                       lm_pos, lm_desc, in_map, lm_max_dist, lm_min_dist, lm_normal,
+                       ref_desc, ref_has_lm, ref_lm_rows,
+                       feat_xy, feat_desc, feat_octave, feat_valid, frame_ur,
+                       R_pred, t_pred, R_last, t_last,
+                       have_velocity, tracked_lms, last_inliers,
+                       radius_coarse, radius_fine, min_inliers,
+                       scale_factors, img_w, img_h,
+                       use_stereo: bool,
+                       use_two_cam: bool = False,
+                       rfeat_xy=None, rfeat_desc=None, rfeat_octave=None,
+                       rfeat_valid=None, K_r=None, R_rl=None, t_rl=None,
+                       chain_pred: bool = False,
+                       with_census: bool = False,
+                       feat_depth=None, min_depth=None, th_depth_m=None,
+                       R_kf=None, t_kf=None):
+    """One visual tracking step (TrackWithMotionModel + TrackLocalMap +
+    TrackReferenceKeyFrame, `Tracking.cc:2720-3061`): stage-1 coarse match
+    and pose BA at the predicted pose, the widened retry from the last pose
+    when the motion model looks poisoned, stage-2 fine match, the reference-
+    keyframe appearance fallback, SO(3) projection, the motion model and
+    the per-feature landmark assignment.
+
+    Every stage matches through kernel K1 and optimizes through kernel K2.
+    The JAX program's two `lax.cond`s are Python branches here, each on one
+    device scalar read to the host (two reads per frame), so a branch not
+    taken launches nothing.
+
+    Returns a dict with R, t (normalized), n, tracked [L], feat_lm [F],
+    vis32 / fnd32 [L], Rv / tv (velocity), vel_poisoned, has_vel and the
+    stacked scalars scal = (n, vel_poisoned, census tracked, census
+    untracked); R_rel / t_rel against (R_kf, t_kf) when given."""
+    dev = lm_pos.device
+    L = lm_pos.shape[0]
+    n_feat = feat_xy.shape[0]
+    n_levels = scale_factors.shape[0]
+    img_wh = (float(img_w), float(img_h))
+    have_velocity = torch.as_tensor(have_velocity, device=dev)
+    last_inliers = torch.as_tensor(last_inliers, device=dev)
+
+    if chain_pred:
+        # motion-model prediction chained from the previous step's outputs
+        Rm, tm = lie.se3_mul(R_pred, t_pred, R_last, t_last)
+        R_pred = torch.where(have_velocity, Rm, R_last)
+        t_pred = torch.where(have_velocity, tm, t_last)
+
+    def inv_sigma2(octave):
+        return 1.0 / scale_factors[torch.clamp(octave, 0, n_levels - 1).long()] ** 2
+
+    cont = in_map & tracked_lms
+    stage1_mask = torch.where(cont.sum() > 2 * min_inliers, cont, in_map)
+
+    def match_opt(R0, t0, mask, radius):
+        idx, ok, visible, _, _ = match_local_map(
+            kind, K, R0, t0, lm_pos, lm_desc, mask,
+            lm_max_dist, lm_min_dist, lm_normal,
+            feat_xy, feat_desc, feat_octave, feat_valid,
+            radius, scale_factors, img_wh=img_wh,
+        )
+        idx = idx.long()
+        inv = inv_sigma2(feat_octave[idx])
+        uv = feat_xy[idx]
+        if use_stereo:
+            ur_edge = torch.where(ok, frame_ur[idx], -1.0)
+            R, t, inlier, n = pose_optimize_stereo(kind, K, bf, R0, t0, uv, ur_edge,
+                                                   lm_pos, inv, ok)
+        else:
+            R, t, inlier, n = pose_optimize(kind, K, R0, t0, uv, lm_pos, inv, ok)
+        return R, t, inlier, n, idx, visible
+
+    # stage 1 at the predicted pose
+    R1, t1, _, n1, _, _ = match_opt(R_pred, t_pred, stage1_mask, radius_coarse)
+
+    # widened retry from the last pose when the motion model looks poisoned
+    # (Tracking.cc:2892-2897); accepted only on a decisive improvement: the
+    # wide window admits lattice-aliased matches on repetitive texture
+    do_fb = have_velocity & (n1 < torch.clamp(0.5 * last_inliers, min=2 * min_inliers))
+    vel_poisoned = torch.zeros((), dtype=torch.bool, device=dev)
+    if bool(do_fb):
+        Rb, tb, _, nb, _, _ = match_opt(R_last, t_last, in_map, 2.0 * radius_coarse)
+        vel_poisoned = (nb > 2 * n1) & (nb > 2 * min_inliers)
+        R1 = torch.where(vel_poisoned, Rb, R1)
+        t1 = torch.where(vel_poisoned, tb, t1)
+        n1 = torch.where(vel_poisoned, nb, n1)
+
+    # stage 2: fine matching at the refined pose
+    R2, t2, inlier, n2, idx, visible = match_opt(R1, t1, in_map, radius_fine)
+
+    # TrackReferenceKeyFrame appearance fallback (Tracking.cc:2720-2779)
+    if bool(n2 < min_inliers):
+        midx, _, mok = matching.search_by_brute_force(
+            feat_desc, feat_valid, ref_desc, ref_has_lm, ratio=0.7, max_dist=matching.TH_LOW)
+        enough = mok.sum() >= 15
+        rows = torch.clamp(ref_lm_rows[midx], 0, L - 1).long()
+        okr = mok & in_map[rows]
+        Rr, tr, _, nr = pose_optimize(kind, K, R_last, t_last, feat_xy, lm_pos[rows],
+                                      inv_sigma2(feat_octave), okr)
+        Rb, tb, inlb, nb, idxb, visb = match_opt(Rr, tr, in_map, radius_fine)
+        use = enough & (nr >= 10) & (nb > n2)
+        R2, t2 = torch.where(use, Rb, R2), torch.where(use, tb, t2)
+        inlier = torch.where(use, inlb, inlier)
+        n2 = torch.where(use, nb, n2)
+        idx = torch.where(use, idxb, idx)
+        visible = torch.where(use, visb, visible)
+
+    if use_two_cam:
+        # right-camera stage (fisheye stereo): match through T_rl and refine
+        # the LEFT pose over both cameras' edges; right-only features count
+        R_r = R_rl @ R2
+        t_r = R_rl @ t2 + t_rl
+        idx_r, ok_r, vis_r, _, _ = match_local_map(
+            kind, K_r, R_r, t_r, lm_pos, lm_desc, in_map,
+            lm_max_dist, lm_min_dist, lm_normal,
+            rfeat_xy, rfeat_desc, rfeat_octave, rfeat_valid,
+            radius_fine, scale_factors, img_wh=img_wh,
+        )
+        idx_r = idx_r.long()
+        R2, t2, inlier, inl_r, n2 = pose_optimize_two_cam(
+            kind, K, K_r, R_rl, t_rl, R2, t2,
+            feat_xy[idx], lm_pos, inv_sigma2(feat_octave[idx]), inlier,
+            rfeat_xy[idx_r], lm_pos, inv_sigma2(rfeat_octave[idx_r]), ok_r,
+        )
+        visible = visible | vis_r
+        tracked_any = inlier | inl_r
+    else:
+        tracked_any = inlier
+
+    R2 = lie.normalize_rotation(R2)
+    # motion model velocity = T_cur T_last^-1 (Tracking.cc:2207)
+    Rl_inv, tl_inv = lie.se3_inv(R_last, t_last)
+    Rv, tv = lie.se3_mul(R2, t2, Rl_inv, tl_inv)
+    Rv = lie.normalize_rotation(Rv)
+
+    # per-feature landmark assignment: the highest landmark row wins
+    feat_lm = torch.full((n_feat + 1,), NO_LM, dtype=torch.int32, device=dev)
+    feat_lm = feat_lm.scatter_reduce(
+        0, torch.where(inlier, idx, n_feat),
+        torch.where(inlier, torch.arange(L, dtype=torch.int32, device=dev), NO_LM), "amax",
+    )[:n_feat]
+
+    if with_census:
+        close = (feat_depth > min_depth) & (feat_depth < th_depth_m) & feat_valid
+        trk_f = feat_lm >= 0
+        census = ((close & trk_f).sum().to(torch.int32), (close & ~trk_f).sum().to(torch.int32))
+    else:
+        census = (torch.tensor(-1, dtype=torch.int32, device=dev),) * 2
+    out = dict(
+        R=R2, t=t2, n=n2, tracked=tracked_any, feat_lm=feat_lm,
+        vis32=visible.to(torch.int32), fnd32=tracked_any.to(torch.int32),
+        Rv=Rv, tv=tv, vel_poisoned=vel_poisoned,
+        has_vel=(n2 >= min_inliers) & ~vel_poisoned,
+        scal=torch.stack([n2.to(torch.int32), vel_poisoned.to(torch.int32), *census]),
+    )
+    if R_kf is not None:
+        Rk_inv, tk_inv = lie.se3_inv(R_kf, t_kf)
+        out["R_rel"], out["t_rel"] = lie.se3_mul(R2, t2, Rk_inv, tk_inv)
+    return out
+
+
+def local_map_mask(kf_feat_lm, kf_feat_valid, kf_valid, lm_valid, lm_map_id,
+                   active_map, covis_W_row, ref_row, max_kfs: int = 80):
+    """Landmarks of the covisibility-local map of keyframe `ref_row`
+    (UpdateLocalKeyFrames / UpdateLocalPoints, `Tracking.cc:3417-3607`):
+    those observed by the reference keyframe and its top `max_kfs`
+    covisible keyframes, in the active map. covis_W_row: [K] covisibility
+    weights of the reference keyframe. The top-k takes the lower row first
+    on ties, as `lax.top_k` does."""
+    K = kf_feat_lm.shape[0]
+    L = lm_valid.shape[0]
+    dev = kf_feat_lm.device
+    rows = torch.arange(K, device=dev)
+    row = torch.where(rows == ref_row, 0, covis_W_row)
+    row = torch.where(kf_valid, row, 0)
+    topw, topi = matching.top_k_stable(row, min(max_kfs, K))
+    in_local = torch.zeros((K,), dtype=torch.bool, device=dev)
+    in_local[topi] = topw > 0
+    ref = torch.clamp(torch.as_tensor(ref_row, device=dev), 0, K - 1).long()
+    in_local[ref] = True
+    bound = (kf_feat_lm >= 0) & kf_feat_valid & in_local[:, None]
+    mask = mark(L, torch.clamp(kf_feat_lm, 0, L - 1).long().reshape(-1),
+                bound.reshape(-1), dev)
+    return mask & lm_valid & (lm_map_id == active_map)

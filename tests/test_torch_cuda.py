@@ -47,7 +47,7 @@ def _k1_case(seed, N, M):
             (uv, po, pd, pv, kp, ko, kd, kv, radius)]
 
 
-@pytest.mark.parametrize("N,M", [(300, 250), (2048, 1000), (37, 2100)])
+@pytest.mark.parametrize("N,M", [(300, 250), (2048, 1000), (37, 2100), (8192, 1000)])
 def test_k1_kernel_matches_plain(cuda, N, M):
     args = _k1_case(0, N, M)
     kw = dict(max_dist=100, ratio=0.8, level_lo=-1, level_hi=1)
@@ -147,9 +147,10 @@ def _k2_case(B, N, stereo, seed):
 
 
 # N: cluster sizes 1 (5, 256), 2 (257) and 8 (2048, 2049: a ragged edge),
-# and 9000 rows, past the 8 x 1024 rows staged in shared memory
+# 8192 (the bootstrap's arena: every staged row in use) and 9000 rows, past
+# the 8 x 1024 rows staged in shared memory
 K2_CASES = [(1, 300, False), (1, 256, True), (1, 2048, False), (4, 2048, True),
-            (3, 5, False)] + [(B, N, stereo) for N in (5, 256, 257, 2048, 2049, 9000)
+            (3, 5, False)] + [(B, N, stereo) for N in (5, 256, 257, 2048, 2049, 8192, 9000)
                               for B in (1, 4) for stereo in (False, True)]
 
 

@@ -2,8 +2,10 @@
 
 - Neither the package nor chip_smoke.py imports jax or orb_slam3_tpu.
 - The package imports without triton or nvcc (kernels build at first use).
-- Entry points default to CUDA and raise where there is none.
-- The port's copy of the ORB pattern equals the JAX package's asset.
+- Entry points (entry(), bootstrap(), the tracker's map and config) default
+  to CUDA and raise where there is none.
+- The port's copy of the ORB pattern equals the JAX package's asset, and
+  atlas/invariants.py is the port's own module.
 """
 
 import ast
@@ -17,7 +19,10 @@ import torch
 
 import orb_slam3_tpu_torch
 from orb_slam3_tpu_torch import entry as tentry
+from orb_slam3_tpu_torch.atlas import invariants as tinv
+from orb_slam3_tpu_torch.atlas import state as tstate
 from orb_slam3_tpu_torch.frontend import camera as tcam
+from orb_slam3_tpu_torch.tracking import tracker as ttracker
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "orb_slam3_tpu_torch"
@@ -60,6 +65,37 @@ def test_entry_defaults_to_cuda_and_raises_without_it(monkeypatch):
         tcam.make_pinhole(450.0, 450.0, 376.0, 240.0)
     K = tcam.make_pinhole(450.0, 450.0, 376.0, 240.0, device="cpu")
     assert K.device.type == "cpu" and K.dtype == torch.float32
+
+
+def test_bootstrap_and_tracker_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    frame = np.zeros((48, 64), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tentry.bootstrap([frame, frame])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tentry.tracker_config()
+    cfg = tentry.tracker_config("cpu", img_wh=(64, 48), kmax=4, lmax=32)
+    assert cfg.K.device.type == "cpu" and (cfg.kmax, cfg.lmax, cfg.local_window) == (4, 32, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttracker.empty_map(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tstate.empty(kmax=2, fmax=4, lmax=8)
+    assert ttracker.empty_map(cfg, device="cpu").lm_pos.device.type == "cpu"
+
+
+def test_entry_points_import_no_jax():
+    for rel in ("entry.py", "tracking/tracker.py", "atlas/invariants.py"):
+        roots = set(_imported_roots(PKG / rel))
+        assert not roots & set(FORBIDDEN), (rel, roots & set(FORBIDDEN))
+
+
+def test_invariants_is_the_ports_own_copy():
+    assert Path(tinv.__file__).resolve() == (PKG / "atlas" / "invariants.py").resolve()
+    assert tinv.check_all.__module__ == "orb_slam3_tpu_torch.atlas.invariants"
+    src = (PKG / "atlas" / "invariants.py").read_text()
+    assert "orb_slam3_tpu." not in src and "import orb_slam3_tpu" not in src
+    for name in ("check_spanning_tree", "check_prev_chain", "check_observations", "check_all"):
+        assert callable(getattr(tinv, name))
 
 
 def test_orb_pattern_copy_equals_jax_asset():
