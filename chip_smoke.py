@@ -45,8 +45,24 @@ Phases; any failure exits non-zero without the final `ok` line:
      frames, poses within 1e-3); whether the init repeats bit for bit; then
      the init's parts, track_frame, K1 / K2 at N = 8192, kernels per
      tracked frame and the device busy share.
-Phases 6 and 7 print one JSON line with each kernel's bound; the last line
-is {"ok": true, "device": {...}}.
+  8. monocular SLAM with keyframes and local mapping at full width (the
+     same config) on 40 PlaneScene frames along the orbit of
+     tests/test_slam_mono.py: entry.slam (System.track_monocular) with the
+     launch counters zeroed just before it, the gates of that test (state OK
+     at the end, >= 70% of frames tracked, scale-fitted ATE < 0.35, n_kf >= 3,
+     > 150 landmarks, >= 95% of bindings on valid landmarks, the Atlas
+     invariants); K1 launched once per fuse target and equal to its plain
+     version everywhere on the last fuse call's inputs, with no valid
+     keypoint, and with 3% of all landmark rows added; the fuse inversion's
+     conflicts equal on the card and the CPU; the last keyframe's mapping
+     stack (map_stage_pre -> local BA -> map_stage_post) rerun on the card
+     and on the CPU plain path from the same state (same keyframe row, BA
+     window and n_fixed; landmarks within 1%, bindings >= 99% per row,
+     keyframe poses within 1e-3); then per-frame track and extraction ms,
+     the mapping parts per keyframe (the port's stage timer), K1 at the
+     fuse shape and the device busy share over one keyframe.
+Phases 6-8 print one JSON line with each kernel's bound and launches by
+path and call site; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -971,6 +987,278 @@ def bootstrap_timing(cfg, out, a1, kw1, a2, kw2, launches, gpu):
                 kernels_per_frame=n_kernels / n_frames, device_busy_share=busy, kernels=rows)
 
 
+# ---------------------------------------------------------------- phase 8
+SLAM_FRAMES = 40  # the orbit of tests/test_slam_mono.py
+
+
+def _on(obj, dev):
+    """A dataclass of tensors (MapState, KFPackage) with each tensor on dev."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(dev) for f in dataclasses.fields(obj)
+        if torch.is_tensor(getattr(obj, f.name))})
+
+
+def keyframe_stack(s, pkg, cfg, parent):
+    """One keyframe's mapping as Tracker._insert_keyframe runs it:
+    map_stage_pre -> local BA -> map_stage_post. Returns the pre stage's
+    (state, kf row, BA rows, n_fixed) and the final state."""
+    from orb_slam3_tpu_torch.mapping import pipeline
+
+    sf = cfg.scale_factors()
+    pre = pipeline.run_pre_stage(s, pkg, cfg, "mono", parent, sf)
+    s2 = pipeline.run_visual_ba(pre[0], cfg, sf, pre[2], pre[3], "mono")
+    return pre, pipeline.map_stage_post(s2, pre[2], cfg.local_window + 4)
+
+
+def compare_maps(a, b, what):
+    """Landmark counts within 1%, each valid keyframe row's bindings equal on
+    >= 99% of features; returns (the worst row's agreement, landmarks a, b)."""
+    n_a, n_b = int(a.lm_valid.sum()), int(b.lm_valid.sum())
+    check(abs(n_a - n_b) <= 0.01 * n_b, f"{what}: landmarks {n_a} vs {n_b}")
+    check(bool((a.kf_valid.cpu() == b.kf_valid.cpu()).all()), f"{what}: valid keyframes differ")
+    rows = b.kf_valid.cpu().nonzero()[:, 0]
+    agree = min(float((a.kf_feat_lm[r].cpu() == b.kf_feat_lm[r].cpu()).float().mean())
+                for r in rows.tolist())
+    check(agree >= 0.99, f"{what}: bindings agree on only {100 * agree:.2f}% of a row")
+    return agree, n_a, n_b
+
+
+def phase_slam(dev, gpu):
+    """Phase 8: monocular SLAM with keyframes and local mapping at full
+    width through entry.slam (System.track_monocular), its gates, K1 at the
+    fuse call site, one keyframe's mapping stack on the card against the CPU
+    plain path, and the timings."""
+    import contextlib
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from orb_slam3_tpu_torch import entry
+    from orb_slam3_tpu_torch.api import evaluate
+    from orb_slam3_tpu_torch.atlas import invariants
+    from orb_slam3_tpu_torch.frontend import match_kernel as mk
+    from orb_slam3_tpu_torch.frontend import orb
+    from orb_slam3_tpu_torch.mapping import fuse, pipeline
+    from orb_slam3_tpu_torch.tracking import pose_kernel as pk
+    from orb_slam3_tpu_torch.tracking import tracker
+    from orb_slam3_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    t0 = time.perf_counter()
+    frames, R_gt, t_gt, _ = entry.plane_sequence(SLAM_FRAMES)
+    print(f"[slam] rendered {SLAM_FRAMES} PlaneScene frames in {time.perf_counter() - t0:.1f} s")
+    cfg = entry.tracker_config(dev)
+
+    # the K1 launches inside each fuse call, the inputs of the last fuse
+    # call's K1 and of the last keyframe's mapping stack
+    rec = {"fuse_calls": 0, "fuse_k1": 0, "fuse_args": None, "pre": None, "frames": []}
+    fuse_orig, pre_orig = fuse.fuse_into_keyframe, pipeline.run_pre_stage
+    k1_orig = mk.search_by_projection_kernel
+    in_fuse = [False]
+
+    def k1_rec(*a, **kw):
+        if in_fuse[0]:
+            rec["fuse_args"] = (a, kw)
+        return k1_orig(*a, **kw)
+
+    def fuse_rec(*a, **kw):
+        n = mk.launches
+        in_fuse[0] = True
+        try:
+            return fuse_orig(*a, **kw)
+        finally:
+            in_fuse[0] = False
+            rec["fuse_calls"] += 1
+            rec["fuse_k1"] += mk.launches - n
+
+    def pre_rec(s, pkg, cfg_, base, parent, sf):
+        rec["pre"] = (s, pkg, parent)
+        return pre_orig(s, pkg, cfg_, base, parent, sf)
+
+    def frame_timer(name):
+        @contextlib.contextmanager
+        def part():
+            torch.cuda.synchronize()
+            n_kf = len(GLOBAL_TIMER.samples["track.kf_insert_sync"])
+            t1 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            rec["frames"].append(((time.perf_counter() - t1) * 1e3,
+                                  len(GLOBAL_TIMER.samples["track.kf_insert_sync"]) > n_kf))
+        return part()
+
+    GLOBAL_TIMER.reset()
+    fuse.fuse_into_keyframe, pipeline.run_pre_stage = fuse_rec, pre_rec
+    mk.search_by_projection_kernel = k1_rec
+    try:
+        mk.launches = 0
+        pk.launches = 0
+        t0 = time.perf_counter()
+        system = entry.slam(frames, cfg, timer=frame_timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K1": mk.launches, "K2": pk.launches}
+    finally:
+        fuse.fuse_into_keyframe, pipeline.run_pre_stage = fuse_orig, pre_orig
+        mk.search_by_projection_kernel = k1_orig
+    stages = GLOBAL_TIMER.summary()
+    samples = {k: list(v) for k, v in GLOBAL_TIMER.samples.items()}
+    tr = system.tracker
+    n_kf_ins = len(samples.get("track.kf_insert_sync", []))
+    print(f"[slam] main path (entry.slam, {SLAM_FRAMES} frames): {wall:.2f} s; launches "
+          f"{launches}; keyframes inserted after the init {n_kf_ins}; fuse calls "
+          f"{rec['fuse_calls']} with {rec['fuse_k1']} K1 launches")
+
+    # the gates of tests/test_slam_mono.py
+    ts, R, t, ok = tr.poses()
+    s = tr.map
+    est = evaluate.camera_centers(R[ok], t[ok])
+    gt = evaluate.camera_centers(R_gt[ok], t_gt[ok])
+    rmse, n_ate, ate_scale = evaluate.ate_rmse(ts[ok], est, ts[ok], gt, with_scale=True)
+    n_kf, n_lm = int(s.n_kf), int(s.lm_valid.sum())
+    lm = s.kf_feat_lm.cpu().numpy()
+    bound = lm[lm >= 0]
+    on_valid = float(s.lm_valid.cpu().numpy()[bound].mean()) if bound.size else 0.0
+    viol = invariants.check_all(s)
+    print(f"[slam] state {tr.state} (OK={tracker.OK}); tracked {int(ok.sum())} of {len(ok)} "
+          f"frames; scale-fitted ATE {rmse:.5f} (scale {ate_scale:.4f}, {n_ate} frames); "
+          f"n_kf {n_kf} (valid {int(s.kf_valid.sum())}), landmarks {n_lm}, bindings on valid "
+          f"landmarks {100 * on_valid:.2f}%, invariant violations {len(viol)}; arena kmax "
+          f"{s.kmax} lmax {s.lmax}")
+    failed = []
+    for cond, msg in ((tr.state == tracker.OK, "state not OK at the end"),
+                      (ok.sum() >= 0.7 * len(ok), f"only {int(ok.sum())} frames tracked"),
+                      (rmse < 0.35, f"ATE {rmse:.4f}"),
+                      (n_kf >= 3, f"n_kf {n_kf}"),
+                      (n_lm > 150, f"{n_lm} landmarks"),
+                      (on_valid >= 0.95, f"{100 * on_valid:.2f}% of bindings on valid landmarks"),
+                      (not viol, f"invariants: {viol[:3]}")):
+        if not cond:
+            print(f"[slam] GATE FAILED: {msg}")
+            failed.append(msg)
+
+    # K1 at the fuse call site: one launch per fuse target, exact on the
+    # real call's inputs and on the two cases the tracking call never meets
+    check(rec["fuse_calls"] >= 4 and rec["fuse_k1"] == rec["fuse_calls"] == 4 * n_kf_ins,
+          f"K1 at the fuse: {rec['fuse_k1']} launches for {rec['fuse_calls']} fuse targets "
+          f"and {n_kf_ins} keyframes")
+    check(launches["K1"] > rec["fuse_k1"] and launches["K2"] >= 2,
+          f"the tracked frames skipped a kernel: {launches}")
+    a, kw = rec["fuse_args"]
+    n_kp = int(a[7].sum())
+    # (the real call's landmark mask is already sparse: the covisibility
+    # pool of the keyframe's neighbours, minus what it observes; the third
+    # case adds 3% of all rows, wherever they project, non-finite included)
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    more = a[3] | (torch.rand(a[3].shape[0], generator=gen) < 0.03).to(a[3].device)
+    for name, args in (("real fuse call", a),
+                       ("no valid keypoint", a[:7] + (torch.zeros_like(a[7]),) + a[8:]),
+                       ("3% of all rows added", a[:3] + (more,) + a[4:])):
+        got = mk.search_by_projection_kernel(*args, **kw)
+        ref = mk.search_by_projection_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for g, r, what in zip(got, ref, ("idx", "dist", "ok")):
+            check(torch.equal(g, r), f"K1 at the fuse, {name}: {what} differs in "
+                  f"{int((g != r).sum())} rows")
+        print(f"[slam] K1 == plain everywhere at the fuse ({name}: N={args[0].shape[0]}, "
+              f"M={args[4].shape[0]}, {int(args[3].sum())} landmarks and "
+              f"{int(args[7].sum())} keypoints valid, {int(got[2].sum())} matched)")
+    # the inversion's conflicts resolve to the highest landmark row on the card
+    idx = torch.randint(0, 40, (cfg.lmax,), generator=gen, dtype=torch.int32)
+    okc = torch.rand(cfg.lmax, generator=gen) < 0.3
+    inv_cpu = fuse.invert_matches(idx, okc, cfg.orb.n_features)
+    inv_dev = [fuse.invert_matches(idx.to(dev), okc.to(dev), cfg.orb.n_features).cpu()
+               for _ in range(3)]
+    check(all(torch.equal(x, inv_cpu) for x in inv_dev), "fuse inversion differs on the card")
+    print("[slam] fuse inversion with conflicts: card == CPU (highest row) in 3 of 3 runs")
+
+    # one keyframe's mapping stack on the card against the CPU plain path,
+    # from the same input state; the card's run is timed and profiled
+    s_in, pkg, parent = rec["pre"]
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ev0.record()
+        pre_g, s_g = keyframe_stack(s_in, pkg, cfg, parent)
+        ev1.record()
+        torch.cuda.synchronize()
+    kf_wall = ev0.elapsed_time(ev1)
+    busy_us, n_kernels, by_name = 0.0, 0, []
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            busy_us += ev.self_device_time_total
+            n_kernels += ev.count
+            by_name.append((ev.self_device_time_total, ev.count, ev.key))
+    kf_busy = busy_us / 1000.0 / kf_wall
+    top = sorted(by_name, reverse=True)[:6]
+    print(f"[slam timing] {gpu}: one keyframe's mapping stack {kf_wall:.1f} ms under the "
+          f"profiler, {n_kernels} CUDA kernels, device busy {100 * kf_busy:.1f}%; top: " + "; ".join(
+              f"{k[:50]} x{c} {us / 1000.0:.2f} ms" for us, c, k in top))
+    cfg_cpu = entry.tracker_config("cpu")
+    t0 = time.perf_counter()
+    pre_c, s_c = keyframe_stack(_on(s_in, "cpu"), _on(pkg, "cpu"), cfg_cpu, parent)
+    cpu_s = time.perf_counter() - t0
+    check(pre_g[1] == pre_c[1], f"keyframe row {pre_g[1]} vs {pre_c[1]}")
+    check(torch.equal(pre_g[2].cpu(), pre_c[2]) and int(pre_g[3]) == int(pre_c[3]),
+          "BA window or n_fixed differs")
+    agree_pre = compare_maps(pre_g[0], pre_c[0], "after map_stage_pre")
+    agree_post = compare_maps(s_g, s_c, "after BA and map_stage_post")
+    kv = s_c.kf_valid
+    dpose = max((s_g.kf_R.cpu()[kv] - s_c.kf_R[kv]).abs().max().item(),
+                (s_g.kf_t.cpu()[kv] - s_c.kf_t[kv]).abs().max().item())
+    check(dpose <= 1e-3, f"keyframe poses after the BA differ by {dpose:.3g}")
+    print(f"[slam] keyframe {pre_g[1]} (window {pre_g[2].tolist()}, n_fixed {int(pre_g[3])}) "
+          f"card vs CPU plain ({cpu_s:.1f} s): after pre, landmarks {agree_pre[1]} vs "
+          f"{agree_pre[2]}, bindings >= {100 * agree_pre[0]:.2f}% per row; after BA + post, "
+          f"landmarks {agree_post[1]} vs {agree_post[2]}, bindings >= {100 * agree_post[0]:.2f}%"
+          f", keyframe poses within {dpose:.3g}")
+
+    # timings: frames, extraction, the mapping parts, K1 at the fuse shape
+    tracked_ms = [ms for (ms, kf), o in zip(rec["frames"], ok) if o and not kf]
+    kf_ms = [ms for ms, kf in rec["frames"] if kf]
+    img = torch.as_tensor(frames[-1], device=dev)
+    extract_ms = time_ms(lambda: orb.extract(img, cfg.orb), runs=20)
+    parts = {k: samples.get(v, []) for k, v in (("pre", "map.pre"), ("ba", "map.local_ba"),
+                                                 ("post", "map.culling"))}
+    med = lambda v: statistics.median(v) if v else None  # noqa: E731
+    fn = lambda: mk.search_by_projection_kernel(*a, **kw)  # noqa: E731
+    plain = lambda: mk.search_by_projection_plain(*a, **kw)  # noqa: E731
+    nbytes, ops = k1_bound(a)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    dev_ms = device_kernel_ms(fn, ["match_kernel"])["match_kernel"]
+    check(dev_ms is not None, "the profiler saw no device time for K1 at the fuse")
+    k1_fuse = dict(N=int(a[0].shape[0]), M=int(a[4].shape[0]), keypoints_valid=n_kp,
+                   launches=rec["fuse_k1"], ms=time_ms(fn), device_ms=dev_ms,
+                   plain_ms=time_ms(plain, runs=5, warmup=1), bound_ms=b_ms, bound_by=b_by,
+                   bytes=nbytes, ops=ops)
+    print(f"[slam timing] {gpu}: tracked frame without a keyframe (extraction included): "
+          f"median {med(tracked_ms):.2f} ms over {len(tracked_ms)} frames; ORB extraction "
+          f"alone {extract_ms:.2f} ms; frame that inserts a keyframe: median {med(kf_ms):.1f} "
+          f"ms over {len(kf_ms)} ({[round(x, 1) for x in kf_ms]})")
+    print(f"[slam timing] {gpu}: mapping per keyframe (stage timer, synchronised), median ms: "
+          + ", ".join(f"{k} {med(v):.1f}" for k, v in parts.items() if v)
+          + "; per keyframe: " + "; ".join(
+              f"{k} {[round(x, 1) for x in v]}" for k, v in parts.items()))
+    print(f"[slam timing] {gpu}: K1 at the fuse (N={k1_fuse['N']}, M={k1_fuse['M']}): "
+          f"{k1_fuse['ms']:.4f} ms per call, device {dev_ms:.5f} ms, plain "
+          f"{k1_fuse['plain_ms']:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return dict(failed=failed, launches=launches, fuse_calls=rec["fuse_calls"],
+                fuse_k1=rec["fuse_k1"], keyframes_inserted=n_kf_ins, wall_s=wall,
+                state=tr.state, tracked=int(ok.sum()), frames=len(ok), ate=rmse,
+                ate_scale=ate_scale, n_kf=n_kf, landmarks=n_lm, bindings_on_valid=on_valid,
+                violations=viol, tracked_frame_ms=med(tracked_ms), extract_ms=extract_ms,
+                keyframe_frame_ms=kf_ms, mapping_ms=parts, keyframe_stack_ms=kf_wall,
+                keyframe_busy_share=kf_busy, keyframe_kernels=n_kernels,
+                keyframe_cpu_s=cpu_s, keyframe_pose_diff=dpose,
+                stages={k: v["p50_ms"] for k, v in stages.items()}, k1_fuse=k1_fuse)
+
+
 def main():
     import torch
 
@@ -1004,21 +1292,30 @@ def main():
     step, args, rec, launches, cfg_K = phase_slice(dev)
     report = phase_timing(step, args, rec, launches, errs, gpu, cfg_K)
     boot = phase_bootstrap(dev, gpu)
-    # each kernel's row: its launches on both main paths, and this path's
-    # numbers at N = lmax beside the track-full ones
+    print(f"[phase] phases 1-7 took {time.perf_counter() - t_start:.1f} s")
+    slam = phase_slam(dev, gpu)
+    # each kernel's row: its launches on the three main paths (and K1's by
+    # call site), the bootstrap's numbers at N = lmax and K1's at the fuse
     for row in report["kernels"]:
         name = row["name"]
         b = boot["kernels"][name]
         row["launches_by_path"] = {"track-full": row["launches"],
-                                   "bootstrap": boot["launches"][name]}
-        row["launches"] = row["launches"] + boot["launches"][name]
+                                   "bootstrap": boot["launches"][name],
+                                   "slam": slam["launches"][name]}
+        row["launches"] = row["launches"] + boot["launches"][name] + slam["launches"][name]
         row["max_abs_err"] = row["max_err"] = max(row["max_abs_err"], boot["err"][name])
         row["bootstrap"] = b
+    k1 = report["kernels"][0]
+    k1["launches_by_site"] = {"track (match_local_map)": k1["launches"] - slam["fuse_k1"],
+                              "fuse (fuse_into_keyframe)": slam["fuse_k1"]}
+    k1["fuse"] = slam["k1_fuse"]
     report["bootstrap"] = {k: v for k, v in boot.items() if k != "kernels"}
+    report["slam"] = {k: v for k, v in slam.items() if k != "k1_fuse"}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    if boot["failed"]:
+    failed = boot["failed"] + slam["failed"]
+    if failed:
         print(json.dumps(report, default=str))
-        raise SmokeFailure(f"bootstrap gates failed: {boot['failed']}")
+        raise SmokeFailure(f"gates failed: {failed}")
     print(json.dumps(report, default=str))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,146 @@
+"""The public session façade, monocular (port of the mono part of
+orb_slam3_tpu/api/system.py).
+
+The reference's top-level API (`System.h:105-198`, `System.cc`): construct
+with a config and a sensor, feed frames with `track_monocular`, query the
+tracking state, reset, export trajectories. Each entry point the JAX
+façade has beyond these raises NotImplementedError naming the slice (ROADMAP
+Queue 1 item) that brings it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..tracking import tracker as trk
+from ..utils.timing import GLOBAL_TIMER
+from . import trajectory
+
+_STEREO = "stereo / RGB-D slice (ROADMAP Queue 1 item 12)"
+_INERTIAL = "inertial slice (item 13)"
+_PLACE = "place-recognition and loop-closing slice (item 14)"
+_API = "remaining-API slice (item 15)"
+
+
+def _not_ported(what: str, slice_: str):
+    raise NotImplementedError(f"{what} is not ported yet: it comes with the {slice_}")
+
+
+class System:
+    MONOCULAR = "mono"
+    STEREO = "stereo"
+    RGBD = "rgbd"
+
+    def __init__(self, settings_path: Optional[str] = None, sensor: str = "mono",
+                 vocabulary=None, config: Optional[trk.TrackerConfig] = None,
+                 atlas_path: Optional[str] = None, device=None):
+        """config: a TrackerConfig; its camera tensor's device is the
+        session's, or `device` (default CUDA) when the camera is not a
+        tensor. Reading a reference-format settings file waits for
+        `api/settings.py`."""
+        if settings_path is not None:
+            _not_ported("reading a settings file (api/settings.py)", _API)
+        if config is None:
+            raise ValueError("need config (settings files are not ported yet)")
+        if sensor != self.MONOCULAR or config.sensor != self.MONOCULAR:
+            _not_ported(f"sensor {sensor!r} / {config.sensor!r}",
+                        _INERTIAL if "imu" in sensor + config.sensor else _STEREO)
+        if vocabulary is not None:
+            _not_ported("a vocabulary (relocalization, loop closing)", _PLACE)
+        if atlas_path is not None:
+            _not_ported("loading an Atlas (api/checkpoint.py)", _API)
+        self.tracker = trk.Tracker(config, device=device)
+
+    # ------------------------------------------------------------------
+    def track_monocular(self, img, timestamp: float, imu=None):
+        """System::TrackMonocular (`System.cc:399`). Returns the frame's
+        (R, t) Tcw as tensors on the session's device, or None before
+        initialization."""
+        if imu is not None:
+            _not_ported("IMU measurements", _INERTIAL)
+        with GLOBAL_TIMER.stage("track.process_total"):
+            self.tracker.process(img, timestamp)
+        with GLOBAL_TIMER.stage("track.pose_return"):
+            return self.current_pose(settle=False)
+
+    def track_stereo(self, img_left, img_right, timestamp: float, imu=None):
+        _not_ported("System.track_stereo", _STEREO)
+
+    def track_rgbd(self, img, depth, timestamp: float, imu=None):
+        _not_ported("System.track_rgbd", _STEREO)
+
+    # ------------------------------------------------------------------
+    def current_pose(self, settle: bool = True):
+        """Latest Tcw estimate (R, t), or None before initialization: numpy
+        arrays, or with settle=False the tensors themselves (no host
+        copy). Mapping is synchronous, so there is nothing in flight."""
+        last = self.tracker.last
+        if last is None:
+            return None
+        if not settle:
+            return last["R"], last["t"]
+        return last["R"].cpu().numpy(), last["t"].cpu().numpy()
+
+    def tracking_state(self) -> int:
+        """System::GetTrackingState (`System.h:160`)."""
+        return self.tracker.state
+
+    def is_lost(self) -> bool:
+        return self.tracker.state in (trk.RECENTLY_LOST, trk.LOST)
+
+    def activate_localization_mode(self):
+        _not_ported("localization-only mode", _STEREO)
+
+    def deactivate_localization_mode(self):
+        _not_ported("localization-only mode", _STEREO)
+
+    def reset(self):
+        """System::Reset: drop everything and start a fresh Atlas."""
+        self.tracker = trk.Tracker(self.tracker.cfg)
+
+    def change_dataset(self):
+        """System::ChangeDataset: store the active map and restart tracking
+        in a fresh one before the next frame."""
+        if self.tracker.state != trk.NOT_INITIALIZED:
+            self.tracker._timestamp_jump()
+
+    # ------------------------------------------------------------------
+    def save_trajectory_tum(self, path: str):
+        ts, R, t, ok = self.tracker.poses()
+        trajectory.save_tum(path, ts, R, t, ok)
+
+    def save_trajectory_euroc(self, path: str):
+        """SaveTrajectoryEuRoC (`System.cc:662-882`), camera frame (the body
+        frame of the inertial sensors comes with their slice)."""
+        ts, R, t, ok = self.tracker.poses()
+        trajectory.save_euroc(path, ts, R, t, ok)
+
+    def save_trajectory_kitti(self, path: str):
+        ts, R, t, ok = self.tracker.poses()
+        trajectory.save_kitti(path, ts, R, t, ok)
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        """System::SaveKeyFrameTrajectoryTUM (`System.cc:884`)."""
+        s = self.tracker.map
+        kv = s.kf_valid.cpu().numpy()
+        trajectory.save_tum(path, s.kf_timestamp.cpu().numpy()[kv],
+                            s.kf_R.cpu().numpy()[kv], s.kf_t.cpu().numpy()[kv])
+
+    def run_global_ba(self, num_iters: int = 10):
+        _not_ported("global BA", _PLACE)
+
+    def save_atlas(self, path: str):
+        _not_ported("saving the Atlas (api/checkpoint.py)", _API)
+
+    def save_map_3d(self, path: str):
+        _not_ported("the 3D map viewer (api/viz.py)", _API)
+
+    def save_debug_data(self, path: str):
+        _not_ported("the inertial debug history", _INERTIAL)
+
+    def start_viewer(self, port: int = 8090, refresh_s: float = 1.0):
+        _not_ported("the live viewer (api/viewer.py)", _API)
+
+    def shutdown(self):
+        """System::Shutdown (`System.cc:515`). Mapping runs on the tracking
+        thread, so no mapper or global-BA thread is left to stop."""

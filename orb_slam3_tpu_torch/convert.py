@@ -100,6 +100,34 @@ def map_state(s, device=None) -> atlas_state.MapState:
     })
 
 
+def tracker_config(cfg, device=None):
+    """A JAX TrackerConfig -> the port's TrackerConfig: the fields the
+    port reads, the camera as a tensor on `device`."""
+    from .tracking import tracker
+
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(tracker.TrackerConfig)}
+    fields.update(K=camera(cfg.K, device), orb=orb_config(cfg.orb), img_wh=tuple(cfg.img_wh))
+    return tracker.TrackerConfig(**fields)
+
+
+def kf_package(pkg, device=None):
+    """A JAX KFPackage -> the port's KFPackage (optional fields stay None;
+    the inertial fields are not carried)."""
+    from .mapping import pipeline
+
+    dev = device_mod.resolve(device)
+    opt = lambda a, conv: None if a is None else conv(a, dev)  # noqa: E731
+    return pipeline.KFPackage(
+        R=_f32(pkg.R, dev), t=_f32(pkg.t, dev), timestamp=float(pkg.timestamp),
+        feat_xy=_f32(pkg.feat_xy, dev), feat_octave=_i32(pkg.feat_octave, dev),
+        feat_angle=_f32(pkg.feat_angle, dev), feat_desc=_u8(pkg.feat_desc, dev),
+        feat_valid=_bool(pkg.feat_valid, dev), feat_lm=opt(pkg.feat_lm, _i32),
+        feat_ur=opt(pkg.feat_ur, _f32), feat_depth=opt(pkg.feat_depth, _f32),
+        n_inliers=int(pkg.n_inliers), stat_vis=opt(pkg.stat_vis, _i32),
+        stat_found=opt(pkg.stat_found, _i32),
+    )
+
+
 def map_state_arrays(s) -> dict:
     """The reverse: the port's MapState -> {field name: numpy array}, ready
     for the JAX MapState's constructor."""

@@ -12,6 +12,11 @@ the tracker's defaults (`tracker_config`): two-view initialization into the
 Atlas, the initial Schur BA, then the fused per-frame tracking of the next
 frames against the 8192-landmark arena through K1 and K2.
 
+`slam(frames)` is monocular SLAM at the same width through the `System`
+façade: the bootstrap, then tracking with keyframe insertion and the
+local-mapping stack (triangulation, the fuse through K1, local BA,
+culling) on every keyframe.
+
 `blob_frame` and `make_scene` build a self-consistent tracking scene from
 a seed: landmarks lifted from a frame's own keypoints plus random map slots,
 and a perturbed start pose. `plane_sequence` renders the textured-plane
@@ -248,6 +253,25 @@ def track_sequence(cfg, init, feats, timer=tracker.no_timer):
                                 lm_found=s.lm_found + o["fnd32"])
     out["map"] = s
     return out
+
+
+def slam(frames, cfg=None, device=None, timer=tracker.no_timer):
+    """Monocular SLAM over `frames` (a sequence of [H, W] images, 0.05 s
+    apart) through System.track_monocular on `device` (default CUDA):
+    initialization, tracking, keyframe insertion and local mapping on each
+    keyframe. `cfg` defaults to tracker_config() (752x480,
+    OrbConfig(1000, 8), kmax 128, lmax 8192, window 8). `timer(name)` is a
+    context manager wrapped around each frame ("frame"). Returns the
+    System, whose tracker holds the map and the trajectory."""
+    from .api.system import System
+
+    if cfg is None:
+        cfg = tracker_config(device)
+    sys_ = System(config=cfg, device=device)
+    for i, img in enumerate(frames):
+        with timer("frame"):
+            sys_.track_monocular(img, 0.05 * i)
+    return sys_
 
 
 def _blur3(img, sigma: float = 0.8):

@@ -1,0 +1,201 @@
+"""The per-keyframe mapping pipeline, visual path (port of the fused stages
+of orb_slam3_tpu/mapping/pipeline.py).
+
+The LocalMapping work unit (`LocalMapping.cc:64-282`) in three stages over
+MapState, as the tracker runs it synchronously for a visual sensor:
+
+    map_stage_pre  : frame statistics, keyframe insertion, triangulation
+                     against the best covisible neighbours, the
+                     SearchInNeighbors fuse, BA-window selection
+    run_visual_ba  : windowed local BA
+    map_stage_post : landmark and keyframe culling, landmark statistics
+
+A `KFPackage` carries one keyframe's tracking output into them (the role
+of `LocalMapping::InsertKeyFrame`'s queue entry, `LocalMapping.cc:284`).
+Where the JAX program selects on device values (`jax.lax.top_k`, `where`
+on a cull flag), the port reads the few scalars it branches on to the host
+once: the keyframe row, the two top-k lists and the cull flag. The stage
+helpers of the inertial path (`insert_keyframe_pkg`, `triangulate_mono`,
+`fuse_recent`, `ba_window`, `cull`) come with the inertial slice; the
+depth-landmark branch of `map_stage_pre` with the stereo / RGB-D slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..atlas import ops as atlas_ops
+from ..atlas import state as atlas_state
+from ..frontend import matching
+from ..ops.scatter import mark
+from . import fuse, local_mapper
+
+
+@dataclasses.dataclass
+class KFPackage:
+    """One keyframe's worth of tracking output. The JAX package's inertial
+    fields (the IMU interval and the gauge version) come with the inertial
+    slice."""
+
+    R: torch.Tensor              # [3,3] Tcw at creation
+    t: torch.Tensor              # [3]
+    timestamp: float
+    feat_xy: torch.Tensor        # [F,2]
+    feat_octave: torch.Tensor    # [F]
+    feat_angle: torch.Tensor     # [F]
+    feat_desc: torch.Tensor      # [F,32]
+    feat_valid: torch.Tensor     # [F]
+    feat_lm: Optional[torch.Tensor]  # [F] landmark rows bound by tracking
+    feat_ur: Optional[torch.Tensor]
+    feat_depth: Optional[torch.Tensor]
+    n_inliers: int
+    # per-landmark tracking statistics since the last package
+    # (mnVisible / mnFound, Tracking::SearchLocalPoints bookkeeping)
+    stat_vis: Optional[torch.Tensor] = None    # [L] int32
+    stat_found: Optional[torch.Tensor] = None  # [L] int32
+
+
+def apply_frame_stats(s: atlas_state.MapState, pkg: KFPackage):
+    if pkg.stat_vis is None:
+        return s
+    return dataclasses.replace(s, lm_visible=s.lm_visible + pkg.stat_vis,
+                               lm_found=s.lm_found + pkg.stat_found)
+
+
+def _covis_row(W, kf: int, kf_valid):
+    """Keyframe kf's covisibility row without itself and invalid rows."""
+    K = W.shape[0]
+    row = torch.where(torch.arange(K, device=W.device) == kf, 0, W[kf])
+    return torch.where(kf_valid, row, 0)
+
+
+def map_stage_pre(kind: int, K8, s: atlas_state.MapState, R, t, timestamp,
+                  feat_xy, feat_octave, feat_angle, feat_desc, feat_valid,
+                  feat_lm, feat_ur, feat_depth, stat_vis, stat_found,
+                  parent_row: int, scale_factors, bf, th_depth, min_depth,
+                  with_depth: bool, n_tri: int = 3, n_fuse: int = 4,
+                  wnd: int = 10, local_window: int = 6):
+    """Insert one keyframe package and run the pre-BA mapping stages.
+    Returns (state, kf_row int, ba_rows [wnd] int32, n_fixed 0-dim).
+
+    Triangulation runs against the n_tri best covisible neighbours with a
+    weight of at least 15 (the parent when none reaches it; ties go to the
+    lower row, as `lax.top_k` gives them); the fuse runs into the keyframe
+    and its n_fuse - 1 best covisible neighbours (the keyframe again where
+    a neighbour is missing), over the landmarks bound in its covisibility
+    neighbourhood. `bf`, `th_depth`, `min_depth` and `feat_ur` serve the
+    depth-sensor branch, which comes with the stereo / RGB-D slice."""
+    if with_depth:
+        raise NotImplementedError("depth landmarks at keyframe insertion come with the "
+                                  "stereo / RGB-D slice")
+    Kc, L = s.kmax, s.lmax
+    dev = s.device
+
+    # frame statistics buffered by the tracker (mnVisible / mnFound)
+    s = dataclasses.replace(s, lm_visible=s.lm_visible + stat_vis,
+                            lm_found=s.lm_found + stat_found)
+    # bindings re-validated against the current landmark validity
+    alive = s.lm_valid[torch.clamp(feat_lm, 0, L - 1).long()] & (feat_lm >= 0)
+    feat_lm = torch.where(alive, feat_lm, atlas_state.NO_LM)
+    parent = torch.tensor(int(parent_row), dtype=torch.int32, device=dev)
+    s, kf = atlas_ops.add_keyframe(
+        s, R, t, timestamp, feat_xy, feat_octave, feat_angle, feat_desc, feat_valid,
+        feat_lm=feat_lm, feat_ur=feat_ur, feat_depth=feat_depth, parent=parent, prev=parent)
+
+    # covisibility of the fresh keyframe and its best neighbours: one host
+    # read of the keyframe row and both top-k lists
+    kf = int(kf)
+    W_row = _covis_row(atlas_state.covisibility_weights(s), kf, s.kf_valid)
+    n_nb = max(n_fuse - 1, 1)
+    k = max(n_tri, n_nb)
+    top_w, top_rows = matching.top_k_stable(W_row, k)
+    picked = torch.cat([top_w, top_rows]).tolist()
+    top_w, top_rows = picked[:k], picked[k:]
+
+    # CreateNewMapPoints against the best covisible neighbours
+    # (LocalMapping.cc:391-408); the parent when none reaches the threshold
+    for i in range(n_tri):
+        nbr = top_rows[i] if top_w[i] >= 15 else (int(parent_row) if i == 0 else kf)
+        if nbr < 0 or nbr == kf:
+            continue  # the JAX stage masks this pair's accept to nothing
+        Xw, f1, f2, accept = local_mapper.triangulate_pair(
+            kind, K8, s, kf, nbr, scale_factors)
+        s = local_mapper.insert_triangulated(s, kf, nbr, Xw, f1, f2, accept)
+
+    # SearchInNeighbors (LocalMapping.cc:714-900): the keyframe and its best
+    # covisible neighbours, candidate landmarks from the neighbourhood's
+    # bindings; the weights are the pre-triangulation ones, as in the JAX
+    # stage (a stable top-k of fewer entries is a prefix of this one)
+    fuse_rows = [kf] + [r if w >= 15 else kf for w, r in zip(top_w[:n_nb], top_rows[:n_nb])]
+    nbr_kfs = W_row > 0
+    nbr_kfs[kf] = True
+    bound_nb = (s.kf_feat_lm >= 0) & s.kf_feat_valid & nbr_kfs[:, None]
+    lm_pool = mark(L, torch.clamp(s.kf_feat_lm, 0, L - 1).long().reshape(-1),
+                   bound_nb.reshape(-1), dev)
+    for row in fuse_rows:
+        s = fuse.fuse_into_keyframe(kind, K8, s, row, scale_factors, lm_mask=lm_pool)
+
+    # BA window: the last `wnd` valid keyframes of the active map, ascending,
+    # padded by repeating the newest (duplicates are frozen in local_ba)
+    mask = s.kf_valid & (s.kf_map_id == s.active_map)
+    idx = torch.sort(torch.where(mask, torch.arange(Kc, device=dev), Kc)).values
+    n_valid = mask.sum()
+    start = torch.clamp(n_valid - wnd, 0, max(Kc - wnd, 0))
+    ba_rows = idx[start + torch.arange(wnd, device=dev)]
+    newest = idx[torch.clamp(n_valid - 1, min=0)]
+    ba_rows = torch.where(ba_rows >= Kc, newest, ba_rows).to(torch.int32)
+    n_rows = torch.clamp(n_valid, max=wnd)
+    n_fixed = torch.where(n_rows > 2, torch.clamp(n_rows - local_window, min=2), 1)
+    return s, kf, ba_rows, n_fixed
+
+
+def run_pre_stage(s, pkg: KFPackage, cfg, base_sensor: str, parent_row: int,
+                  scale_factors):
+    """map_stage_pre on a package, with its optional fields made concrete.
+    Returns (state, kf_row int, ba_rows, n_fixed)."""
+    L, F = s.lmax, s.fmax
+    dev = s.device
+    z_i32 = torch.zeros((L,), dtype=torch.int32, device=dev)
+    return map_stage_pre(
+        cfg.kind, cfg.K, s, pkg.R, pkg.t, float(pkg.timestamp),
+        pkg.feat_xy, pkg.feat_octave, pkg.feat_angle, pkg.feat_desc, pkg.feat_valid,
+        pkg.feat_lm if pkg.feat_lm is not None
+        else torch.full((F,), atlas_state.NO_LM, dtype=torch.int32, device=dev),
+        pkg.feat_ur if pkg.feat_ur is not None
+        else -torch.ones((F,), dtype=torch.float32, device=dev),
+        pkg.feat_depth if pkg.feat_depth is not None
+        else torch.zeros((F,), dtype=torch.float32, device=dev),
+        pkg.stat_vis if pkg.stat_vis is not None else z_i32,
+        pkg.stat_found if pkg.stat_found is not None else z_i32,
+        parent_row, scale_factors, 0.0, 0.0, 0.0,
+        with_depth=base_sensor != "mono" and pkg.feat_depth is not None,
+        wnd=cfg.local_window + 4, local_window=cfg.local_window,
+    )
+
+
+def run_visual_ba(s: atlas_state.MapState, cfg, scale_factors, rows, n_fixed,
+                  base_sensor: str, iters: int = 8):
+    """Windowed local BA (`Optimizer::LocalBundleAdjustment`) over the
+    window rows, run to its end: the abort between iteration chunks serves
+    the background mapper, which comes with a later slice."""
+    if base_sensor != "mono":
+        raise NotImplementedError("the stereo edges of local BA come with the "
+                                  "stereo / RGB-D slice")
+    s, _ = local_mapper.local_ba(
+        cfg.kind, cfg.K, s, rows, n_fixed=n_fixed, window=cfg.local_window + 4,
+        iters=iters, scale_factors=scale_factors)
+    return s
+
+
+def map_stage_post(s: atlas_state.MapState, ba_rows, min_kf_for_cull: int):
+    """Post-BA: landmark culling, keyframe culling over the BA window once
+    the map holds more than `min_kf_for_cull` valid keyframes, landmark
+    statistics refresh. The JAX stage computes the culled state and selects
+    it on device; the port branches on one host read of the flag."""
+    s = local_mapper.cull_landmarks(s)
+    if int(s.kf_valid.sum()) > int(min_kf_for_cull):
+        s = local_mapper.cull_keyframes(s, ba_rows)
+    return atlas_state.update_landmark_stats(s)

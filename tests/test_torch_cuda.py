@@ -198,3 +198,58 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     k2[3] = k2[3].double()
     with pytest.raises(TypeError):
         pk.pose_ba(*k2)
+
+
+def _k1_fuse_case(name):
+    """The fuse call site's shapes and settings (N = 8192 landmarks, M = 1000
+    keypoints, radius 2 px at the predicted octave, max_dist 35, ratio 0.8)
+    in the two cases the tracking call never meets: a keyframe whose every
+    feature is already bound (no valid keypoint), and a covisibility pool
+    that leaves a sparse set of valid landmarks."""
+    args = [a.numpy().copy() for a in _k1_case(11, 8192, 1000)]
+    uv, po, pd, pv, kp, ko, kd, kv, radius = args
+    radius[:] = 2.0 * 1.2 ** po
+    P = 500
+    kp[:P] = uv[:P] + np.random.default_rng(12).uniform(-1.5, 1.5, (P, 2)).astype(np.float32)
+    if name == "no_valid_keypoint":
+        kv[:] = False
+    else:
+        pv[:] = np.random.default_rng(13).uniform(size=8192) < 0.03
+        pv[:P:7] = True
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+
+
+@pytest.mark.parametrize("name", ["no_valid_keypoint", "sparse_landmarks"])
+def test_k1_at_the_fuse_call(cuda, name):
+    """Exact equality everywhere at the fuse call's shapes."""
+    args = _k1_fuse_case(name)
+    kw = dict(max_dist=35, ratio=0.8, level_lo=-1, level_hi=1)
+    ref = mk.search_by_projection_plain(*args, **kw)
+    got = [x.cpu() for x in mk.search_by_projection_kernel(*[a.to(cuda) for a in args], **kw)]
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    if name == "no_valid_keypoint":
+        assert not got[2].any() and (got[1] == mk.BIG).all()
+    else:
+        assert 20 <= int(got[2].sum()) <= int(args[3].sum())
+
+
+def test_fuse_inversion_is_deterministic_on_the_card(cuda):
+    """Several landmarks on one feature: the highest row wins on the card as
+    on the CPU, every time."""
+    from orb_slam3_tpu_torch.mapping import fuse
+
+    rng = np.random.default_rng(5)
+    idx = torch.from_numpy(rng.integers(0, 50, 8192).astype(np.int32))
+    ok = torch.from_numpy(rng.uniform(size=8192) < 0.2)
+    ref = fuse.invert_matches(idx, ok, 1000)
+    rows = np.arange(8192)
+    want = np.full(1000, -1)
+    for f in range(1000):
+        hit = rows[ok.numpy() & (idx.numpy() == f)]
+        if hit.size:
+            want[f] = hit.max()
+    assert ref.tolist() == want.tolist()
+    for _ in range(3):
+        assert torch.equal(fuse.invert_matches(idx.to(cuda), ok.to(cuda), 1000).cpu(), ref)

@@ -2,8 +2,8 @@
 
 - Neither the package nor chip_smoke.py imports jax or orb_slam3_tpu.
 - The package imports without triton or nvcc (kernels build at first use).
-- Entry points (entry(), bootstrap(), the tracker's map and config) default
-  to CUDA and raise where there is none.
+- Entry points (entry(), bootstrap(), slam(), the tracker's map and config,
+  Tracker, System) default to CUDA and raise where there is none.
 - The port's copy of the ORB pattern equals the JAX package's asset, and
   atlas/invariants.py is the port's own module.
 """
@@ -83,8 +83,33 @@ def test_bootstrap_and_tracker_default_to_cuda_and_raise_without_it(monkeypatch)
     assert ttracker.empty_map(cfg, device="cpu").lm_pos.device.type == "cpu"
 
 
+def test_slam_tracker_and_system_default_to_cuda_and_raise_without_it(monkeypatch):
+    from orb_slam3_tpu_torch.api import system as tsystem
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    frame = np.zeros((48, 64), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tentry.slam([frame])
+    K = np.asarray([40.0, 40.0, 32.0, 24.0, 0, 0, 0, 0], np.float32)
+    cfg = ttracker.TrackerConfig(K=K, img_wh=(64, 48), kmax=4, lmax=32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttracker.Tracker(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsystem.System(config=cfg)
+    t = ttracker.Tracker(cfg, device="cpu")
+    assert t.device.type == "cpu" and t.map.lm_pos.device.type == "cpu"
+    assert cfg.K is K  # the tracker keeps its own copy of the config
+    cpu_cfg = tentry.tracker_config("cpu", img_wh=(64, 48), kmax=4, lmax=32)
+    s = tsystem.System(config=cpu_cfg)
+    assert s.tracker.device.type == "cpu"  # the camera tensor's device
+    assert s.track_monocular(frame, 0.0) is None and s.tracking_state() == ttracker.NOT_INITIALIZED
+
+
 def test_entry_points_import_no_jax():
-    for rel in ("entry.py", "tracking/tracker.py", "atlas/invariants.py"):
+    for rel in ("entry.py", "tracking/tracker.py", "atlas/invariants.py", "api/system.py",
+                "api/evaluate.py", "api/trajectory.py", "mapping/pipeline.py",
+                "mapping/fuse.py", "mapping/local_mapper.py", "utils/timing.py",
+                "utils/verbose.py"):
         roots = set(_imported_roots(PKG / rel))
         assert not roots & set(FORBIDDEN), (rel, roots & set(FORBIDDEN))
 
