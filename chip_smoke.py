@@ -29,9 +29,10 @@ Phases; any failure exits non-zero without the final `ok` line:
      entry()'s own example arguments run and give finite results;
   6. timing of the full step, each kernel and each plain version at the
      main path's inputs (CUDA events, median of 50 runs after warm-up),
-     each kernel's device time (torch.profiler), its host enqueue time
-     (host clock around the call, no sync, median) and the device time of
-     an empty launch;
+     each kernel's device time (torch.profiler, and CUDA events around 20
+     calls queued behind a spin kernel, the fallback wherever the profiler
+     sees no device time), its host enqueue time (host clock around the
+     call, no sync, median) and the device time of an empty launch;
   7. the monocular bootstrap at full width (752x480, 1000 features, 8
      levels, kmax 128, lmax 8192, window 8) on the PlaneScene geometry
      rendered here: entry.bootstrap with the launch counters zeroed just
@@ -60,8 +61,31 @@ Phases; any failure exits non-zero without the final `ok` line:
      window and n_fixed; landmarks within 1%, bindings >= 99% per row,
      keyframe poses within 1e-3); then per-frame track and extraction ms,
      the mapping parts per keyframe (the port's stage timer), K1 at the
-     fuse shape and the device busy share over one keyframe.
-Phases 6-8 print one JSON line with each kernel's bound and launches by
+     fuse shape and the device busy share over one keyframe; the fuse's new
+     observations per keyframe.
+  9. pinhole stereo, RGB-D and localization mode at full width (the same
+     config with the depth fields; th_depth 20) through entry.slam
+     (System.track_rgbd / track_stereo), each session with the launch
+     counters zeroed just before it: RGB-D (PlaneScene seed 1, 25 frames,
+     bf 450 x 0.1: >= 80% tracked, unscaled ATE < 0.10), stereo (seed 2, 20
+     frames, baseline 0.12, bf 450 x 0.12: >= 80% tracked, ATE < 0.15) and
+     localization (seed 6, RGB-D: 12 mapped frames, then 22 with mapping
+     paused: state OK, n_kf unchanged, the last camera centre within 0.15),
+     and the localization session again at th_depth 80 (12 + 10 frames, the
+     same gates), where the VO points lie nearer than th_depth_m = 8 m and
+     so are valid (>= 100 valid and >= 50 matched at every VO match);
+     K2's stereo template launched on every tracked frame and equal to its
+     plain version on a tracked stereo frame's inputs; in localization mode
+     K1 at the VO points (N = 1000, exact) and K2 over map + VO rows
+     (N = 9192) launched and equal to their plain versions on the th_depth
+     80 session's last paused frame; one depth
+     keyframe's mapping stack on the card equal to the CPU plain path (every
+     binding, keyframe poses within 1e-4); then per session the frame and
+     keyframe-frame ms split by stage (synchronised), launches per frame,
+     the fuse's new observations per keyframe, match_stereo /
+     depth_from_rgbd / extraction alone, and the device busy share over one
+     depth keyframe.
+Phases 6-9 print one JSON line with each kernel's bound and launches by
 path and call site; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -137,9 +161,31 @@ def host_ms(fn, runs=50, warmup=5):
     return statistics.median(times) * 1e3
 
 
-def device_kernel_ms(fn, names, runs=20):
-    """Mean device time per call of the kernels whose name contains one of
-    `names`, from torch.profiler; None where the profiler saw no device time."""
+def events_device_ms(fn, runs=20):
+    """Device milliseconds per call from CUDA events alone: a spin kernel
+    holds the stream until all `runs` calls are enqueued behind it, so the
+    calls run back to back on the device and the host's enqueue time drops
+    out (the gaps between launches stay in)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's boost clock
+    a.record()
+    for _ in range(runs):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / runs
+
+
+def device_kernel_ms(fn, name, runs=20):
+    """(ms, how): the mean device time per call of the kernels whose name
+    contains `name`, from torch.profiler ("profiler"); where three profiler
+    windows see no device time for them, the device time of the whole call
+    from CUDA events instead ("events", see events_device_ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -149,19 +195,35 @@ def device_kernel_ms(fn, names, runs=20):
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        out = {}
-        for n in names:
-            us = 0.0
-            for ev in prof.key_averages():
-                if n in ev.key:
-                    us += (getattr(ev, "device_time_total", 0.0)
-                           or getattr(ev, "cuda_time_total", 0.0))
-            out[n] = us / 1000.0 / runs if us > 0 else None
-        if all(v is not None for v in out.values()):
-            break
-        print(f"[timing] profiler window {attempt + 1} saw no device time for "
-              f"{[n for n, v in out.items() if v is None]}; profiling again")
-    return out
+        us = sum((getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0))
+                 for ev in prof.key_averages() if name in ev.key)
+        if us > 0:
+            return us / 1000.0 / runs, "profiler"
+        print(f"[timing] profiler window {attempt + 1} saw no device time for {name}")
+    ms = events_device_ms(fn, runs)
+    print(f"[timing] {name}: device time from CUDA events instead: {ms:.5f} ms per call")
+    return ms, "events"
+
+
+def device_busy(prof):
+    """(busy ms, CUDA kernels, [(us, count, name)]) from a profiler window;
+    busy ms is None where the window holds no device event."""
+    from torch.autograd import DeviceType
+
+    busy_us, n_kernels, by_name = 0.0, 0, []
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            busy_us += ev.self_device_time_total
+            n_kernels += ev.count
+            by_name.append((ev.self_device_time_total, ev.count, ev.key))
+    if n_kernels == 0:
+        print("[timing] the profiler saw no device event: device busy share not measured")
+        return None, 0, []
+    return busy_us / 1000.0, n_kernels, by_name
+
+
+def pct(share):
+    return "not measured" if share is None else f"{100 * share:.1f}%"
 
 
 # ---------------------------------------------------------------- phase 3
@@ -509,7 +571,6 @@ def stage_breakdown(step, args, cfg, K):
         "pose_ms": time_ms(lambda: track.pose_optimize(
             cam.PINHOLE, K, R0, t0, uv, lm_pos, inv, ok)),
     }
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     runs = 10
@@ -522,12 +583,8 @@ def stage_breakdown(step, args, cfg, K):
             step(*args)
         b.record()
         torch.cuda.synchronize()
-    busy_us, n_kernels = 0.0, 0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            busy_us += ev.self_device_time_total
-            n_kernels += ev.count
-    out["device_busy_share"] = busy_us / 1000.0 / a.elapsed_time(b)
+    busy, n_kernels, _ = device_busy(prof)
+    out["device_busy_share"] = None if busy is None else busy / a.elapsed_time(b)
     out["kernels_per_step"] = n_kernels / runs
     return out
 
@@ -554,18 +611,25 @@ def k1_bound(a):
 def k2_bound(a, kw, rounds=3, iters=6):
     K, R0, t0, uv, Xw, isig, valid = a
     B, N = uv.shape[0], uv.shape[1]
-    stereo = "ur" in kw
-    nbytes = B * N * (12 + 8 + 4 + 1 + (4 if stereo else 0))
-    nbytes += B * (16 + 36 + 12 + (4 if stereo else 0))  # K's four, R0, t0, bf
+    ur = kw.get("ur")
+    n_valid = int(valid.sum())
+    # rows with a third (uR) residual: the valid rows with ur >= 0
+    n_stereo = int((valid & (ur >= 0)).sum()) if ur is not None else 0
+    # the valid mask is read for every row; a valid row's uv, Xw, isig (and
+    # ur) once; R, t, n and the mask written once per problem / row
+    nbytes = B * N + n_valid * (8 + 12 + 4 + (4 if ur is not None else 0))
+    nbytes += B * (16 + 36 + 12 + (4 if ur is not None else 0))  # K's four, R0, t0, bf
     nbytes += B * (36 + 12 + 4) + B * N  # R, t, n, mask
-    # what the function needs: one sweep over the rows per Gauss-Newton
-    # iteration plus one per round, 21 at rounds=3, iters=6 (each trial
-    # pose's sweep gives both its cost and the next normal equations; the
-    # reclassification is folded into the next round's first sweep). A
-    # sweep is ~200 ops a row: chi2 31, weights 10, Jacobians 23, 21 + 6
-    # weighted products and sums ~135.
-    per_row = rounds * (1 + iters) * 200
-    return nbytes, B * N * per_row
+    # what the function needs: one sweep over the valid rows per
+    # Gauss-Newton iteration plus one per round, 21 at rounds=3, iters=6
+    # (each trial pose's sweep gives both its cost and the next normal
+    # equations; the reclassification is folded into the next round's
+    # first sweep). A sweep is ~200 ops a mono row: chi2 31, weights 10,
+    # Jacobians 23, 21 + 6 weighted products and sums ~135. The uR row adds
+    # ~85: its residual and chi2 term ~10, its Jacobian row ~8 and its
+    # 21 + 6 weighted products and sums ~67.
+    sweeps = rounds * (1 + iters)
+    return nbytes, sweeps * (n_valid * 200 + n_stereo * 85)
 
 
 def bound_ms(nbytes, ops):
@@ -590,9 +654,10 @@ def phase_timing(step, args, rec, launches, errs, gpu, cfg_K):
 
     step_ms = time_ms(lambda: step(*args))
     dev = a2[0].device
-    floor_ms = device_kernel_ms(lambda: pk.noop_launch(dev), ["noop_kernel"])["noop_kernel"]
-    check(floor_ms is not None, "the profiler saw no device time for an empty launch")
-    print(f"[timing] launch floor (device time of an empty kernel): {floor_ms:.5f} ms")
+    floor_ms, floor_by = device_kernel_ms(lambda: pk.noop_launch(dev), "noop_kernel")
+    floor_ev = events_device_ms(lambda: pk.noop_launch(dev))
+    print(f"[timing] launch floor (device time of an empty kernel, {floor_by}): {floor_ms:.5f} ms"
+          f"; by CUDA events behind a spin kernel (the profiler's fallback): {floor_ev:.5f} ms")
     rows = []
     specs = (
         ("K1", "orb_slam3_tpu_torch/csrc/match_kernel.cu",
@@ -609,16 +674,18 @@ def phase_timing(step, args, rec, launches, errs, gpu, cfg_K):
         enqueue_ms = host_ms(fn)
         plain_ms = time_ms(plain)
         b_ms, b_by = bound_ms(nbytes, ops)
-        dev_ms = device_kernel_ms(fn, [kname])[kname]
-        check(dev_ms is not None, f"the profiler saw no device time for {name}")
+        dev_ms, dev_by = device_kernel_ms(fn, kname)
+        dev_ev = events_device_ms(fn)
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": launches[name], "max_abs_err": errs[name], "max_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "device_ms": dev_ms, "host_ms": enqueue_ms,
+            "library_ms": None, "device_ms": dev_ms, "device_ms_by": dev_by,
+            "device_events_ms": dev_ev, "host_ms": enqueue_ms,
             "launch_floor_ms": floor_ms, "bytes": nbytes, "ops": ops,
         })
-        print(f"[timing] {name}: {ms:.4f} ms per call (device {dev_ms:.5f}, host enqueue "
+        print(f"[timing] {name}: {ms:.4f} ms per call (device {dev_ms:.5f} by {dev_by}, "
+              f"{dev_ev:.5f} by events, host enqueue "
               f"{enqueue_ms:.5f}), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
     rows[1]["cluster"] = pk.cluster_size(a2[3].shape[1])
     stages = stage_breakdown(step, args, *cfg_K)
@@ -733,7 +800,8 @@ def check_bootstrap(out, cfg, R_gt, t_gt, planes, what):
     bound = (fl >= 0) & lm_ok[np.clip(fl, 0, None)]
     uv = s.kf_feat_xy[res.kf0].cpu().numpy()[bound]
     w, h = cfg.img_wh
-    depth = entry.plane_depth(planes, cfg.K.cpu().double().numpy(), (w, h), R_gt[j], t_gt[j])
+    depth = entry.render_with_depth(planes, cfg.K.cpu().double().numpy(), (w, h), R_gt[j],
+                                    t_gt[j])[1]
     px = np.clip(np.round(uv).astype(np.int64), 0, [w - 1, h - 1])
     z_true = depth[px[:, 1], px[:, 0]]
     z_est = s.lm_pos.cpu().numpy()[fl[bound], 2]
@@ -910,7 +978,6 @@ def bootstrap_timing(cfg, out, a1, kw1, a2, kw2, launches, gpu):
     import statistics
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from orb_slam3_tpu_torch import entry
@@ -944,10 +1011,10 @@ def bootstrap_timing(cfg, out, a1, kw1, a2, kw2, launches, gpu):
             ("K2", lambda: pk.pose_ba(*a2, **kw2), lambda: pk.pose_ba_plain(*a2, **kw2),
              k2_bound(a2, kw2), "pose_kernel")):
         b_ms, b_by = bound_ms(nbytes, ops)
-        dev_ms = device_kernel_ms(fn, [kname])[kname]
-        check(dev_ms is not None, f"the profiler saw no device time for {name}")
+        dev_ms, dev_by = device_kernel_ms(fn, kname)
         rows[name] = dict(N=int(a1[0].shape[0] if name == "K1" else a2[3].shape[1]),
                           launches=launches[name], ms=time_ms(fn), device_ms=dev_ms,
+                          device_ms_by=dev_by,
                           plain_ms=time_ms(plain, runs=5, warmup=1), bound_ms=b_ms,
                           bound_by=b_by, bytes=nbytes, ops=ops)
 
@@ -961,22 +1028,17 @@ def bootstrap_timing(cfg, out, a1, kw1, a2, kw2, launches, gpu):
             entry.track_sequence(cfg, res, tracked)
         b.record()
         torch.cuda.synchronize()
-    busy_us, n_kernels, by_name = 0.0, 0, []
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            busy_us += ev.self_device_time_total
-            n_kernels += ev.count
-            by_name.append((ev.self_device_time_total, ev.count, ev.key))
+    busy_ms, n_kernels, by_name = device_busy(prof)
     n_frames = runs * len(tracked)
     top = sorted(by_name, reverse=True)[:8]
     print("[boot timing] device time per tracked frame by kernel: " + "; ".join(
         f"{k[:60]} x{c / n_frames:.1f} {us / 1000.0 / n_frames:.3f} ms" for us, c, k in top))
-    busy = busy_us / 1000.0 / a.elapsed_time(b)
+    busy = None if busy_ms is None else busy_ms / a.elapsed_time(b)
     print(f"[boot timing] {gpu}: init parts (ms, median of 3): "
           + ", ".join(f"{k} {v:.2f}" for k, v in init_ms.items()))
     print(f"[boot timing] {gpu}: track_frame median {track_ms:.2f} ms over "
           f"{len(t_track.ms['track_frame'])} frames; {n_kernels / n_frames:.0f} CUDA kernels "
-          f"per tracked frame; device busy {100 * busy:.1f}%")
+          f"per tracked frame; device busy {pct(busy)}")
     for name, r in rows.items():
         print(f"[boot timing] {gpu}: {name} at N={r['N']}: {r['ms']:.4f} ms per call, device "
               f"{r['device_ms']:.5f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} "
@@ -1002,28 +1064,76 @@ def _on(obj, dev):
         if torch.is_tensor(getattr(obj, f.name))})
 
 
-def keyframe_stack(s, pkg, cfg, parent):
+def keyframe_stack(s, pkg, cfg, parent, sensor="mono"):
     """One keyframe's mapping as Tracker._insert_keyframe runs it:
     map_stage_pre -> local BA -> map_stage_post. Returns the pre stage's
     (state, kf row, BA rows, n_fixed) and the final state."""
     from orb_slam3_tpu_torch.mapping import pipeline
 
     sf = cfg.scale_factors()
-    pre = pipeline.run_pre_stage(s, pkg, cfg, "mono", parent, sf)
-    s2 = pipeline.run_visual_ba(pre[0], cfg, sf, pre[2], pre[3], "mono")
+    pre = pipeline.run_pre_stage(s, pkg, cfg, sensor, parent, sf)
+    s2 = pipeline.run_visual_ba(pre[0], cfg, sf, pre[2], pre[3], sensor)
     return pre, pipeline.map_stage_post(s2, pre[2], cfg.local_window + 4)
 
 
-def compare_maps(a, b, what):
+def keyframe_stack_vs_cpu(s_in, pkg, cfg, parent, sensor, gpu, tag, min_agree=0.99,
+                          pose_tol=1e-3):
+    """One keyframe's mapping stack on the card (timed and profiled) and on
+    the CPU plain path from the same input state: the same keyframe row, BA
+    window and n_fixed, landmarks within 1%, each row's bindings equal on at
+    least `min_agree` of its features, keyframe poses within `pose_tol`."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ev0.record()
+        pre_g, s_g = keyframe_stack(s_in, pkg, cfg, parent, sensor)
+        ev1.record()
+        torch.cuda.synchronize()
+    kf_wall = ev0.elapsed_time(ev1)
+    busy_ms, n_kernels, by_name = device_busy(prof)
+    kf_busy = None if busy_ms is None else busy_ms / kf_wall
+    top = sorted(by_name, reverse=True)[:6]
+    print(f"[{tag} timing] {gpu}: one keyframe's mapping stack {kf_wall:.1f} ms under the "
+          f"profiler, {n_kernels} CUDA kernels, device busy {pct(kf_busy)}; top: " + "; ".join(
+              f"{k[:50]} x{c} {us / 1000.0:.2f} ms" for us, c, k in top))
+    cfg_cpu = dataclasses.replace(cfg, K=cfg.K.cpu())
+    t0 = time.perf_counter()
+    pre_c, s_c = keyframe_stack(_on(s_in, "cpu"), _on(pkg, "cpu"), cfg_cpu, parent, sensor)
+    cpu_s = time.perf_counter() - t0
+    check(pre_g[1] == pre_c[1], f"keyframe row {pre_g[1]} vs {pre_c[1]}")
+    check(torch.equal(pre_g[2].cpu(), pre_c[2]) and int(pre_g[3]) == int(pre_c[3]),
+          "BA window or n_fixed differs")
+    agree_pre = compare_maps(pre_g[0], pre_c[0], "after map_stage_pre", min_agree)
+    agree_post = compare_maps(s_g, s_c, "after BA and map_stage_post", min_agree)
+    kv = s_c.kf_valid
+    dpose = max((s_g.kf_R.cpu()[kv] - s_c.kf_R[kv]).abs().max().item(),
+                (s_g.kf_t.cpu()[kv] - s_c.kf_t[kv]).abs().max().item())
+    check(dpose <= pose_tol, f"keyframe poses after the BA differ by {dpose:.3g}")
+    print(f"[{tag}] keyframe {pre_g[1]} (window {pre_g[2].tolist()}, n_fixed {int(pre_g[3])}) "
+          f"card vs CPU plain ({cpu_s:.1f} s): after pre, landmarks {agree_pre[1]} vs "
+          f"{agree_pre[2]}, bindings >= {100 * agree_pre[0]:.2f}% per row; after BA + post, "
+          f"landmarks {agree_post[1]} vs {agree_post[2]}, bindings >= {100 * agree_post[0]:.2f}%"
+          f", keyframe poses within {dpose:.3g}")
+    return dict(ms=kf_wall, busy_share=kf_busy, kernels=n_kernels, cpu_s=cpu_s,
+                pose_diff=dpose, bindings_agree=min(agree_pre[0], agree_post[0]))
+
+
+def compare_maps(a, b, what, min_agree=0.99):
     """Landmark counts within 1%, each valid keyframe row's bindings equal on
-    >= 99% of features; returns (the worst row's agreement, landmarks a, b)."""
+    >= min_agree of features; returns (the worst row's agreement, landmarks
+    a, b)."""
     n_a, n_b = int(a.lm_valid.sum()), int(b.lm_valid.sum())
     check(abs(n_a - n_b) <= 0.01 * n_b, f"{what}: landmarks {n_a} vs {n_b}")
     check(bool((a.kf_valid.cpu() == b.kf_valid.cpu()).all()), f"{what}: valid keyframes differ")
     rows = b.kf_valid.cpu().nonzero()[:, 0]
     agree = min(float((a.kf_feat_lm[r].cpu() == b.kf_feat_lm[r].cpu()).float().mean())
                 for r in rows.tolist())
-    check(agree >= 0.99, f"{what}: bindings agree on only {100 * agree:.2f}% of a row")
+    check(agree >= min_agree, f"{what}: bindings agree on only {100 * agree:.2f}% of a row")
     return agree, n_a, n_b
 
 
@@ -1037,8 +1147,6 @@ def phase_slam(dev, gpu):
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from orb_slam3_tpu_torch import entry
     from orb_slam3_tpu_torch.api import evaluate
@@ -1057,7 +1165,8 @@ def phase_slam(dev, gpu):
 
     # the K1 launches inside each fuse call, the inputs of the last fuse
     # call's K1 and of the last keyframe's mapping stack
-    rec = {"fuse_calls": 0, "fuse_k1": 0, "fuse_args": None, "pre": None, "frames": []}
+    rec = {"fuse_calls": 0, "fuse_k1": 0, "fuse_args": None, "pre": None, "frames": [],
+           "fuse_new": []}
     fuse_orig, pre_orig = fuse.fuse_into_keyframe, pipeline.run_pre_stage
     k1_orig = mk.search_by_projection_kernel
     in_fuse = [False]
@@ -1071,7 +1180,11 @@ def phase_slam(dev, gpu):
         n = mk.launches
         in_fuse[0] = True
         try:
-            return fuse_orig(*a, **kw)
+            out = fuse_orig(*a, **kw)
+            # new observations in the keyframe row, kept on the device
+            s, row = a[2], a[3]
+            rec["fuse_new"].append(((out.kf_feat_lm[row] >= 0) & (s.kf_feat_lm[row] < 0)).sum())
+            return out
         finally:
             in_fuse[0] = False
             rec["fuse_calls"] += 1
@@ -1181,43 +1294,12 @@ def phase_slam(dev, gpu):
     # one keyframe's mapping stack on the card against the CPU plain path,
     # from the same input state; the card's run is timed and profiled
     s_in, pkg, parent = rec["pre"]
-    torch.cuda.synchronize()
-    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ev0.record()
-        pre_g, s_g = keyframe_stack(s_in, pkg, cfg, parent)
-        ev1.record()
-        torch.cuda.synchronize()
-    kf_wall = ev0.elapsed_time(ev1)
-    busy_us, n_kernels, by_name = 0.0, 0, []
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            busy_us += ev.self_device_time_total
-            n_kernels += ev.count
-            by_name.append((ev.self_device_time_total, ev.count, ev.key))
-    kf_busy = busy_us / 1000.0 / kf_wall
-    top = sorted(by_name, reverse=True)[:6]
-    print(f"[slam timing] {gpu}: one keyframe's mapping stack {kf_wall:.1f} ms under the "
-          f"profiler, {n_kernels} CUDA kernels, device busy {100 * kf_busy:.1f}%; top: " + "; ".join(
-              f"{k[:50]} x{c} {us / 1000.0:.2f} ms" for us, c, k in top))
-    cfg_cpu = entry.tracker_config("cpu")
-    t0 = time.perf_counter()
-    pre_c, s_c = keyframe_stack(_on(s_in, "cpu"), _on(pkg, "cpu"), cfg_cpu, parent)
-    cpu_s = time.perf_counter() - t0
-    check(pre_g[1] == pre_c[1], f"keyframe row {pre_g[1]} vs {pre_c[1]}")
-    check(torch.equal(pre_g[2].cpu(), pre_c[2]) and int(pre_g[3]) == int(pre_c[3]),
-          "BA window or n_fixed differs")
-    agree_pre = compare_maps(pre_g[0], pre_c[0], "after map_stage_pre")
-    agree_post = compare_maps(s_g, s_c, "after BA and map_stage_post")
-    kv = s_c.kf_valid
-    dpose = max((s_g.kf_R.cpu()[kv] - s_c.kf_R[kv]).abs().max().item(),
-                (s_g.kf_t.cpu()[kv] - s_c.kf_t[kv]).abs().max().item())
-    check(dpose <= 1e-3, f"keyframe poses after the BA differ by {dpose:.3g}")
-    print(f"[slam] keyframe {pre_g[1]} (window {pre_g[2].tolist()}, n_fixed {int(pre_g[3])}) "
-          f"card vs CPU plain ({cpu_s:.1f} s): after pre, landmarks {agree_pre[1]} vs "
-          f"{agree_pre[2]}, bindings >= {100 * agree_pre[0]:.2f}% per row; after BA + post, "
-          f"landmarks {agree_post[1]} vs {agree_post[2]}, bindings >= {100 * agree_post[0]:.2f}%"
-          f", keyframe poses within {dpose:.3g}")
+    stack = keyframe_stack_vs_cpu(s_in, pkg, cfg, parent, "mono", gpu, "slam")
+    kf_wall, kf_busy, n_kernels = stack["ms"], stack["busy_share"], stack["kernels"]
+    cpu_s, dpose = stack["cpu_s"], stack["pose_diff"]
+    fuse_new = torch.stack(rec["fuse_new"]).cpu().tolist()
+    per_kf = [sum(fuse_new[i:i + 4]) for i in range(0, len(fuse_new), 4)]
+    print(f"[slam] fuse: new observations per keyframe {per_kf} (per call {fuse_new})")
 
     # timings: frames, extraction, the mapping parts, K1 at the fuse shape
     tracked_ms = [ms for (ms, kf), o in zip(rec["frames"], ok) if o and not kf]
@@ -1231,10 +1313,10 @@ def phase_slam(dev, gpu):
     plain = lambda: mk.search_by_projection_plain(*a, **kw)  # noqa: E731
     nbytes, ops = k1_bound(a)
     b_ms, b_by = bound_ms(nbytes, ops)
-    dev_ms = device_kernel_ms(fn, ["match_kernel"])["match_kernel"]
-    check(dev_ms is not None, "the profiler saw no device time for K1 at the fuse")
+    dev_ms, dev_by = device_kernel_ms(fn, "match_kernel")
     k1_fuse = dict(N=int(a[0].shape[0]), M=int(a[4].shape[0]), keypoints_valid=n_kp,
                    launches=rec["fuse_k1"], ms=time_ms(fn), device_ms=dev_ms,
+                   device_ms_by=dev_by,
                    plain_ms=time_ms(plain, runs=5, warmup=1), bound_ms=b_ms, bound_by=b_by,
                    bytes=nbytes, ops=ops)
     print(f"[slam timing] {gpu}: tracked frame without a keyframe (extraction included): "
@@ -1255,8 +1337,344 @@ def phase_slam(dev, gpu):
                 violations=viol, tracked_frame_ms=med(tracked_ms), extract_ms=extract_ms,
                 keyframe_frame_ms=kf_ms, mapping_ms=parts, keyframe_stack_ms=kf_wall,
                 keyframe_busy_share=kf_busy, keyframe_kernels=n_kernels,
-                keyframe_cpu_s=cpu_s, keyframe_pose_diff=dpose,
+                keyframe_cpu_s=cpu_s, keyframe_pose_diff=dpose, fuse_new_per_keyframe=per_kf,
                 stages={k: v["p50_ms"] for k, v in stages.items()}, k1_fuse=k1_fuse)
+
+
+# ---------------------------------------------------------------- phase 9
+# (name, sensor, PlaneScene seed, frames, baseline, first localization
+# frame, th_depth): the configurations of tests/test_slam_rgbd_stereo.py at
+# full width (th_depth 20: th_depth_m = bf * th_depth / fx = 2 m, under the
+# scene's 4.2-6 m, so no VO point is valid), and the localization session
+# again at th_depth 80 (8 m), where every paused frame carries valid VO
+# points into the next
+DEPTH_SESSIONS = (("rgbd", "rgbd", 1, 25, 0.1, None, 20.0),
+                  ("stereo", "stereo", 2, 20, 0.12, None, 20.0),
+                  ("localization", "rgbd", 6, 34, 0.1, 12, 20.0),
+                  ("localization-vo", "rgbd", 6, 22, 0.1, 12, 80.0))
+
+
+def depth_frames(sensor, seed, n, baseline):
+    """PlaneScene frames along the orbit, rendered in numpy on a thread pool:
+    (left, right) pairs for stereo, (image, depth) pairs for RGB-D."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from orb_slam3_tpu_torch import entry
+
+    planes = entry.plane_scene(seed)
+    R, t = entry.orbit_trajectory(n)
+    K, wh = entry.FULL_K, entry.FULL_WH
+    if sensor == "stereo":
+        render = lambda i: entry.render_stereo(planes, K, wh, R[i], t[i], baseline)  # noqa: E731
+    else:
+        render = lambda i: entry.render_with_depth(planes, K, wh, R[i], t[i])  # noqa: E731
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(render, range(n))), R, t
+
+
+def run_depth_session(dev, name, sensor, seed, n, baseline, localize_from, th_depth):
+    """One phase-9 session through entry.slam (System.track_rgbd /
+    track_stereo), the launch counters zeroed just before it, mapping paused
+    from frame `localize_from` on. Every stage of the stage timer is
+    synchronised at its end, so the per-frame split includes the device's
+    time. Records each frame's time and launches, the K1 / K2 inputs of the
+    last calls at the new call sites, the K1 launches inside the fuse, each
+    fuse call's new observations (on the device, read once at the end) and
+    the last keyframe's mapping inputs."""
+    import contextlib
+
+    import torch
+
+    from orb_slam3_tpu_torch import entry
+    from orb_slam3_tpu_torch.api.system import System
+    from orb_slam3_tpu_torch.frontend import match_kernel as mk
+    from orb_slam3_tpu_torch.mapping import fuse, pipeline
+    from orb_slam3_tpu_torch.tracking import pose_kernel as pk
+    from orb_slam3_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    t0 = time.perf_counter()
+    frames, R_gt, t_gt = depth_frames(sensor, seed, n, baseline)
+    render_s = time.perf_counter() - t0
+    cfg = entry.tracker_config(dev, sensor=sensor, bf=450.0 * baseline, th_depth=th_depth)
+    F, L = cfg.orb.n_features, cfg.lmax
+    rec = {"frames": [], "fuse_new": [], "pre": None, "k2_stereo": None, "k1_vo": None,
+           "k2_loc": None, "paused_at_kf": None,
+           "sites": {"K1 vo": 0, "K2 loc": 0, "K1 fuse": 0}, "vo_valid": [], "vo_ok": []}
+    k1_orig, k2_orig = mk.search_by_projection_kernel, pk.pose_ba
+    fuse_orig, pre_orig = fuse.fuse_into_keyframe, pipeline.run_pre_stage
+    stage_orig, pause_orig = GLOBAL_TIMER.stage, System.activate_localization_mode
+
+    def k1_rec(*a, **kw):
+        if a[0].shape[0] != F:  # N = lmax: tracking and the fuse
+            return k1_orig(*a, **kw)
+        rec["k1_vo"], n0 = (a, kw), mk.launches
+        out = k1_orig(*a, **kw)
+        rec["sites"]["K1 vo"] += mk.launches - n0
+        rec["vo_valid"].append(a[3].sum())
+        rec["vo_ok"].append(out[2].sum())
+        return out
+
+    def k2_rec(*a, **kw):
+        N = a[3].shape[1]
+        if kw.get("ur") is not None and N == L:
+            rec["k2_stereo"] = (a, kw)
+        if N != L + F:
+            return k2_orig(*a, **kw)
+        rec["k2_loc"], n0 = (a, kw), pk.launches
+        out = k2_orig(*a, **kw)
+        rec["sites"]["K2 loc"] += pk.launches - n0
+        return out
+
+    def fuse_rec(kind, K8, s, row, sf, **kw):
+        n0 = mk.launches
+        out = fuse_orig(kind, K8, s, row, sf, **kw)
+        rec["sites"]["K1 fuse"] += mk.launches - n0
+        rec["fuse_new"].append(((out.kf_feat_lm[row] >= 0) & (s.kf_feat_lm[row] < 0)).sum())
+        return out
+
+    def pre_rec(s, pkg, cfg_, base, parent, sf):
+        rec["pre"] = (s, pkg, parent)
+        return pre_orig(s, pkg, cfg_, base, parent, sf)
+
+    def pause_rec(self):
+        rec["paused_at_kf"] = int(self.tracker.map.n_kf)
+        return pause_orig(self)
+
+    def frame_timer(name):
+        @contextlib.contextmanager
+        def part():
+            i = len(rec["frames"])
+            n_kf = len(GLOBAL_TIMER.samples["track.kf_insert_sync"])
+            k = (mk.launches, pk.launches, pk.stereo_launches)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            rec["frames"].append(dict(
+                ms=(time.perf_counter() - t1) * 1e3,
+                kf=len(GLOBAL_TIMER.samples["track.kf_insert_sync"]) > n_kf,
+                k1=mk.launches - k[0], k2=pk.launches - k[1], k2_stereo=pk.stereo_launches - k[2],
+                paused=localize_from is not None and i >= localize_from))
+        return part()
+
+    GLOBAL_TIMER.reset()
+    mk.search_by_projection_kernel, pk.pose_ba = k1_rec, k2_rec
+    fuse.fuse_into_keyframe, pipeline.run_pre_stage = fuse_rec, pre_rec
+    GLOBAL_TIMER.stage = lambda stage_name: GLOBAL_TIMER.stage_sync(stage_name, dev)
+    System.activate_localization_mode = pause_rec
+    try:
+        mk.launches = pk.launches = pk.stereo_launches = 0
+        t0 = time.perf_counter()
+        system = entry.slam(frames, cfg, localize_from=localize_from, timer=frame_timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K1": mk.launches, "K2": pk.launches, "K2_stereo": pk.stereo_launches,
+                    **rec["sites"]}
+    finally:
+        mk.search_by_projection_kernel, pk.pose_ba = k1_orig, k2_orig
+        fuse.fuse_into_keyframe, pipeline.run_pre_stage = fuse_orig, pre_orig
+        GLOBAL_TIMER.stage = stage_orig
+        System.activate_localization_mode = pause_orig
+    read = lambda v: torch.stack(v).cpu().tolist() if v else []  # noqa: E731
+    fuse_new, vo_valid, vo_ok = read(rec["fuse_new"]), read(rec["vo_valid"]), read(rec["vo_ok"])
+    samples = {k: list(v) for k, v in GLOBAL_TIMER.samples.items()}
+    print(f"[depth {name}] {n} frames rendered in {render_s:.1f} s; main path "
+          f"(entry.slam -> System.track_{sensor}, bf {cfg.bf:g}, th_depth {cfg.th_depth:g}): "
+          f"{wall:.2f} s; launches {launches}")
+    return dict(system=system, cfg=cfg, frames=frames, R_gt=R_gt, t_gt=t_gt, rec=rec,
+                fuse_new=fuse_new, vo_valid=vo_valid, vo_ok=vo_ok, samples=samples,
+                launches=launches, wall_s=wall)
+
+
+def depth_gates(name, run):
+    """The gates of tests/test_slam_rgbd_stereo.py. Returns (failed, summary)."""
+    import numpy as np
+
+    from orb_slam3_tpu_torch.api import evaluate
+    from orb_slam3_tpu_torch.atlas import invariants
+    from orb_slam3_tpu_torch.tracking import tracker
+
+    tr = run["system"].tracker
+    ts, R, t, ok = tr.poses()
+    n = len(ok)
+    s = tr.map
+    summary = dict(state=tr.state, tracked=int(ok.sum()), frames=n, n_kf=int(s.n_kf),
+                   landmarks=int(s.lm_valid.sum()), violations=invariants.check_all(s))
+    conds = []
+    if name.startswith("localization"):
+        c_est = -tr.last["R"].cpu().double().numpy().T @ tr.last["t"].cpu().double().numpy()
+        c_gt = -run["R_gt"][-1].T @ run["t_gt"][-1]
+        d = float(np.linalg.norm(c_est - c_gt))
+        summary.update(centre_err=d, n_kf_paused=run["rec"]["paused_at_kf"])
+        conds = [(tr.state == tracker.OK, "state not OK at the end"),
+                 (summary["n_kf"] == run["rec"]["paused_at_kf"],
+                  f"n_kf {summary['n_kf']} changed from {run['rec']['paused_at_kf']} while paused"),
+                 (d < 0.15, f"last camera centre {d:.4f} from the truth")]
+    else:
+        est = evaluate.camera_centers(R[ok], t[ok])
+        gt = evaluate.camera_centers(run["R_gt"][ok], run["t_gt"][ok])
+        rmse, _, scale = evaluate.ate_rmse(ts[ok], est, ts[ok], gt, with_scale=False)
+        summary.update(ate=rmse, ate_scale=scale)
+        gate = 0.10 if name == "rgbd" else 0.15
+        conds = [(ok.sum() >= 0.8 * n, f"only {int(ok.sum())} of {n} frames tracked"),
+                 (rmse < gate, f"unscaled ATE {rmse:.4f} (gate {gate})")]
+    conds.append((not summary["violations"], f"invariants: {summary['violations'][:3]}"))
+    failed = [f"{name}: {msg}" for cond, msg in conds if not cond]
+    for msg in failed:
+        print(f"[depth] GATE FAILED: {msg}")
+    print(f"[depth {name}] " + ", ".join(f"{k} {v}" for k, v in summary.items()
+                                       if k != "violations")
+          + f", invariant violations {len(summary['violations'])}")
+    return failed, summary
+
+
+def phase_depth(dev, gpu):
+    """Phase 9: pinhole stereo, RGB-D and localization mode at full width
+    through System.track_stereo / track_rgbd, the gates
+    of tests/test_slam_rgbd_stereo.py, K2's stereo template and the
+    localization call sites against their plain versions on the sessions'
+    own inputs, one depth keyframe's mapping stack on the card against the
+    CPU plain path, and the timings."""
+    import statistics
+
+    import torch
+
+    from orb_slam3_tpu_torch.frontend import match_kernel as mk
+    from orb_slam3_tpu_torch.frontend import orb, stereo
+    from orb_slam3_tpu_torch.tracking import pose_kernel as pk
+
+    med = lambda v: statistics.median(v) if v else None  # noqa: E731
+    runs, failed, out = {}, [], {"sessions": {}}
+    for name, sensor, seed, n, baseline, loc, th_depth in DEPTH_SESSIONS:
+        run = runs[name] = run_depth_session(dev, name, sensor, seed, n, baseline, loc,
+                                             th_depth)
+        f, summary = depth_gates(name, run)
+        failed += f
+        frames = run["rec"]["frames"]
+        # K2's stereo template on every tracked depth frame; in localization
+        # mode K1 at the VO call and K2 over map + VO rows
+        tracked = frames[1:]
+        check(all(fr["k2_stereo"] >= 1 for fr in tracked),
+              f"{name}: a tracked frame launched no stereo K2: "
+              f"{[fr['k2_stereo'] for fr in tracked]}")
+        check(run["launches"]["K1"] >= 2 * len(tracked), f"{name}: K1 launches {run['launches']}")
+        if loc is not None:
+            n_paused = sum(fr["paused"] for fr in frames)
+            # the VO buffer exists from the second paused frame on
+            check(run["launches"]["K1 vo"] >= n_paused - 1 and run["launches"]["K2 loc"]
+                  >= n_paused - 1, f"localization call sites: {run['launches']} over "
+                  f"{n_paused} paused frames")
+            print(f"[depth {name}] VO points per VO match: valid {run['vo_valid']}, "
+                  f"matched {run['vo_ok']}")
+            if run["system"].tracker.th_depth_m > 6.5:  # beyond the scene: real VO rows
+                check(min(run["vo_valid"]) >= 100 and min(run["vo_ok"]) >= 50,
+                      f"{name}: VO points valid {run['vo_valid']}, matched {run['vo_ok']}")
+        s = run["samples"]
+        plain_frames = [fr["ms"] for fr in tracked if not fr["kf"] and not fr["paused"]]
+        loc_frames = [fr["ms"] for fr in tracked if fr["paused"]]
+        kf_frames = [fr["ms"] for fr in tracked if fr["kf"]]
+        fuse = run["fuse_new"]
+        per_kf = [sum(fuse[i:i + 4]) for i in range(0, len(fuse), 4)]
+        timing = dict(
+            frame_ms=med(plain_frames), localization_frame_ms=med(loc_frames),
+            keyframe_frame_ms=med(kf_frames), keyframe_frames=len(kf_frames),
+            orb_extraction_ms=med(s.get("orb_extraction", [])),
+            stereo_depth_ms=med(s.get("track.stereo_depth", [])),
+            fused_step_ms=med(s.get("track.fused_step", [])),
+            localization_step_ms=med(s.get("track.localization", [])),
+            map_ms={k: med(s.get(v, [])) for k, v in (("pre", "map.pre"),
+                                                      ("local_ba", "map.local_ba"),
+                                                      ("culling", "map.culling"))},
+            k1_per_frame=med([fr["k1"] for fr in tracked if not fr["kf"]]),
+            k2_per_frame=med([fr["k2"] for fr in tracked if not fr["kf"]]),
+            k2_stereo_per_frame=med([fr["k2_stereo"] for fr in tracked if not fr["kf"]]),
+            fuse_new_per_keyframe=per_kf)
+        print(f"[depth timing] {gpu}: {name}: frame without a keyframe median "
+              f"{timing['frame_ms']} ms over {len(plain_frames)}"
+              + (f"; localization-mode frame median {timing['localization_frame_ms']:.2f} ms "
+                 f"over {len(loc_frames)}" if loc_frames else "")
+              + f"; per frame (synchronised stages, medians): orb_extraction "
+              f"{timing['orb_extraction_ms']:.2f} ms"
+              + (" (both images)" if sensor == "stereo" else "")
+              + f", track.stereo_depth {timing['stereo_depth_ms']:.2f} ms, track.fused_step "
+              f"{timing['fused_step_ms']} ms"
+              + (f", track.localization {timing['localization_step_ms']:.2f} ms"
+                 if loc_frames else ""))
+        print(f"[depth timing] {gpu}: {name}: keyframe frame median {timing['keyframe_frame_ms']}"
+              f" ms over {len(kf_frames)}; map.pre / local_ba / culling medians "
+              f"{timing['map_ms']}; launches per frame without a keyframe: K1 "
+              f"{timing['k1_per_frame']}, K2 {timing['k2_per_frame']} (stereo "
+              f"{timing['k2_stereo_per_frame']}); fuse new observations per keyframe {per_kf}")
+        out["sessions"][name] = dict(summary, launches=run["launches"], wall_s=run["wall_s"],
+                                     **timing)
+
+    # K2's stereo template on a tracked stereo frame's real inputs
+    a2, kw2 = runs["stereo"]["rec"]["k2_stereo"]
+    n_mono = int(((kw2["ur"] < 0) & a2[6]).sum())
+    err_stereo = compare_k2(pk.pose_ba(*a2, **kw2), pk.pose_ba_plain(*a2, **kw2),
+                            "stereo template on a tracked stereo frame")
+    print(f"[depth] K2 stereo template vs plain on a tracked stereo frame (N={a2[3].shape[1]}, "
+          f"{int(a2[6].sum())} valid rows, {n_mono} of them mono): mask equal, max |err| "
+          f"{err_stereo:.3g}")
+    # the localization call sites, on the last paused frame of the session
+    # whose VO points are valid
+    a1v, kw1v = runs["localization-vo"]["rec"]["k1_vo"]
+    err_k1, n_ok = compare_k1(mk.search_by_projection_kernel(*a1v, **kw1v),
+                              mk.search_by_projection_plain(*a1v, **kw1v))
+    a2l, kw2l = runs["localization-vo"]["rec"]["k2_loc"]
+    err_loc = compare_k2(pk.pose_ba(*a2l, **kw2l), pk.pose_ba_plain(*a2l, **kw2l),
+                         "mono template over map + VO rows")
+    print(f"[depth] localization call sites: K1 at the VO points == plain (N={a1v[0].shape[0]},"
+          f" {int(a1v[3].sum())} valid VO points, {n_ok} matched); K2 mono over map + VO rows "
+          f"(N={a2l[3].shape[1]}, {int(a2l[6].sum())} valid) vs plain: max |err| {err_loc:.3g}")
+
+    # one depth keyframe's mapping stack on the card against the CPU plain path
+    run = runs["rgbd"]
+    cfg = run["cfg"]
+    s_in, pkg, parent = run["rec"]["pre"]
+    kf_stack = keyframe_stack_vs_cpu(s_in, pkg, cfg, parent, "rgbd", gpu, "depth",
+                                     min_agree=1.0, pose_tol=1e-4)
+
+    # the plain-torch stages of the depth frontend, timed alone on a real frame
+    img = torch.as_tensor(runs["stereo"]["frames"][-1][0], device=dev)
+    img_r = torch.as_tensor(runs["stereo"]["frames"][-1][1], device=dev)
+    sf = cfg.scale_factors()
+    fl, fr = orb.extract(img, cfg.orb), orb.extract(img_r, cfg.orb)
+    sargs = (fl.xy, fl.octave, fl.descriptors, fl.valid, fr.xy, fr.octave, fr.descriptors,
+             fr.valid, img, img_r, sf, runs["stereo"]["cfg"].bf, 0.1)
+    dmap = torch.as_tensor(runs["rgbd"]["frames"][-1][1], device=dev)
+    frontend = dict(
+        extract_ms=time_ms(lambda: orb.extract(img, cfg.orb), runs=20),
+        match_stereo_ms=time_ms(lambda: stereo.match_stereo(*sargs), runs=20),
+        depth_from_rgbd_ms=time_ms(lambda: stereo.depth_from_rgbd(fl.xy, dmap, cfg.bf), runs=20))
+    print(f"[depth timing] {gpu}: alone on a real frame (CUDA events, median of 20): ORB "
+          f"extraction {frontend['extract_ms']:.2f} ms per image, match_stereo "
+          f"{frontend['match_stereo_ms']:.3f} ms, depth_from_rgbd "
+          f"{frontend['depth_from_rgbd_ms']:.3f} ms")
+    rows = {}
+    for kname, fn, plain, bound, N, prof_name in (
+            ("K2_stereo", lambda: pk.pose_ba(*a2, **kw2), lambda: pk.pose_ba_plain(*a2, **kw2),
+             k2_bound(a2, kw2), a2[3].shape[1], "pose_kernel"),
+            ("K1_vo", lambda: mk.search_by_projection_kernel(*a1v, **kw1v),
+             lambda: mk.search_by_projection_plain(*a1v, **kw1v), k1_bound(a1v),
+             a1v[0].shape[0], "match_kernel"),
+            ("K2_loc", lambda: pk.pose_ba(*a2l, **kw2l), lambda: pk.pose_ba_plain(*a2l, **kw2l),
+             k2_bound(a2l, kw2l), a2l[3].shape[1], "pose_kernel")):
+        b_ms, b_by = bound_ms(*bound)
+        dev_ms, dev_by = device_kernel_ms(fn, prof_name)
+        rows[kname] = dict(N=int(N), ms=time_ms(fn, runs=20), device_ms=dev_ms,
+                           device_ms_by=dev_by,
+                           plain_ms=time_ms(plain, runs=3, warmup=1), bound_ms=b_ms,
+                           bound_by=b_by)
+        print(f"[depth timing] {gpu}: {kname} (N={N}): {rows[kname]['ms']:.4f} ms per call, "
+              f"device {dev_ms:.5f} ms, plain {rows[kname]['plain_ms']:.3f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by})")
+    launches = {k: sum(r["launches"].get(k, 0) for r in runs.values())
+                for k in ("K1", "K2", "K2_stereo", "K1 vo", "K2 loc", "K1 fuse")}
+    out.update(failed=failed, launches=launches, err={"K1": err_k1,
+                                                      "K2": max(err_stereo, err_loc)},
+               keyframe_stack=kf_stack, frontend=frontend, call_sites=rows)
+    return out
 
 
 def main():
@@ -1294,25 +1712,39 @@ def main():
     boot = phase_bootstrap(dev, gpu)
     print(f"[phase] phases 1-7 took {time.perf_counter() - t_start:.1f} s")
     slam = phase_slam(dev, gpu)
-    # each kernel's row: its launches on the three main paths (and K1's by
-    # call site), the bootstrap's numbers at N = lmax and K1's at the fuse
+    print(f"[phase] phases 1-8 took {time.perf_counter() - t_start:.1f} s")
+    depth = phase_depth(dev, gpu)
+    # each kernel's row: its launches on the four main paths (and by call
+    # site), the bootstrap's numbers at N = lmax, K1's at the fuse and the
+    # depth sessions' call sites
     for row in report["kernels"]:
         name = row["name"]
         b = boot["kernels"][name]
         row["launches_by_path"] = {"track-full": row["launches"],
                                    "bootstrap": boot["launches"][name],
-                                   "slam": slam["launches"][name]}
-        row["launches"] = row["launches"] + boot["launches"][name] + slam["launches"][name]
-        row["max_abs_err"] = row["max_err"] = max(row["max_abs_err"], boot["err"][name])
+                                   "slam": slam["launches"][name],
+                                   "slam-depth": depth["launches"][name]}
+        row["launches"] = sum(row["launches_by_path"].values())
+        row["max_abs_err"] = row["max_err"] = max(row["max_abs_err"], boot["err"][name],
+                                                  depth["err"][name])
         row["bootstrap"] = b
-    k1 = report["kernels"][0]
-    k1["launches_by_site"] = {"track (match_local_map)": k1["launches"] - slam["fuse_k1"],
-                              "fuse (fuse_into_keyframe)": slam["fuse_k1"]}
+    k1, k2 = report["kernels"]
+    fuse_k1 = slam["fuse_k1"] + depth["launches"]["K1 fuse"]
+    k1["launches_by_site"] = {
+        "track (match_local_map)": k1["launches"] - fuse_k1 - depth["launches"]["K1 vo"],
+        "fuse (fuse_into_keyframe)": fuse_k1,
+        "localization VO points": depth["launches"]["K1 vo"]}
     k1["fuse"] = slam["k1_fuse"]
+    k1["vo"] = depth["call_sites"]["K1_vo"]
+    k2["launches_by_site"] = {"stereo template (depth tracking)": depth["launches"]["K2_stereo"],
+                              "mono over map + VO rows": depth["launches"]["K2 loc"]}
+    k2["stereo"] = depth["call_sites"]["K2_stereo"]
+    k2["localization"] = depth["call_sites"]["K2_loc"]
     report["bootstrap"] = {k: v for k, v in boot.items() if k != "kernels"}
     report["slam"] = {k: v for k, v in slam.items() if k != "k1_fuse"}
+    report["slam_depth"] = {k: v for k, v in depth.items() if k != "call_sites"}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    failed = boot["failed"] + slam["failed"]
+    failed = boot["failed"] + slam["failed"] + depth["failed"]
     if failed:
         print(json.dumps(report, default=str))
         raise SmokeFailure(f"gates failed: {failed}")

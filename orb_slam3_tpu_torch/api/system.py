@@ -1,11 +1,12 @@
-"""The public session façade, monocular (port of the mono part of
-orb_slam3_tpu/api/system.py).
+"""The public session façade (port of orb_slam3_tpu/api/system.py for the
+pinhole visual sensors).
 
 The reference's top-level API (`System.h:105-198`, `System.cc`): construct
-with a config and a sensor, feed frames with `track_monocular`, query the
-tracking state, reset, export trajectories. Each entry point the JAX
-façade has beyond these raises NotImplementedError naming the slice (ROADMAP
-Queue 1 item) that brings it.
+with a config, feed frames with `track_monocular`, `track_stereo` or
+`track_rgbd` as the config's sensor asks, switch localization-only mode on
+and off, query the tracking state, reset, export trajectories. Each entry
+point the JAX façade has beyond these raises NotImplementedError naming the
+slice (ROADMAP Queue 1 item) that brings it.
 """
 
 from __future__ import annotations
@@ -16,8 +17,7 @@ from ..tracking import tracker as trk
 from ..utils.timing import GLOBAL_TIMER
 from . import trajectory
 
-_STEREO = "stereo / RGB-D slice (ROADMAP Queue 1 item 12)"
-_INERTIAL = "inertial slice (item 13)"
+_INERTIAL = "inertial slice (ROADMAP Queue 1 item 13)"
 _PLACE = "place-recognition and loop-closing slice (item 14)"
 _API = "remaining-API slice (item 15)"
 
@@ -34,17 +34,19 @@ class System:
     def __init__(self, settings_path: Optional[str] = None, sensor: str = "mono",
                  vocabulary=None, config: Optional[trk.TrackerConfig] = None,
                  atlas_path: Optional[str] = None, device=None):
-        """config: a TrackerConfig; its camera tensor's device is the
-        session's, or `device` (default CUDA) when the camera is not a
-        tensor. Reading a reference-format settings file waits for
-        `api/settings.py`."""
+        """config: a TrackerConfig, whose `sensor` ("mono", "stereo" or
+        "rgbd") the session runs; `sensor`, when not the default, must name
+        the same one. The camera tensor's device is the session's, or
+        `device` (default CUDA) when the camera is not a tensor. Reading a
+        reference-format settings file waits for `api/settings.py`."""
         if settings_path is not None:
             _not_ported("reading a settings file (api/settings.py)", _API)
         if config is None:
             raise ValueError("need config (settings files are not ported yet)")
-        if sensor != self.MONOCULAR or config.sensor != self.MONOCULAR:
-            _not_ported(f"sensor {sensor!r} / {config.sensor!r}",
-                        _INERTIAL if "imu" in sensor + config.sensor else _STEREO)
+        if "imu" in sensor + config.sensor:
+            _not_ported(f"sensor {sensor!r} / {config.sensor!r}", _INERTIAL)
+        if sensor != self.MONOCULAR and sensor != config.sensor:
+            raise ValueError(f"sensor {sensor!r} but the config's is {config.sensor!r}")
         if vocabulary is not None:
             _not_ported("a vocabulary (relocalization, loop closing)", _PLACE)
         if atlas_path is not None:
@@ -52,22 +54,42 @@ class System:
         self.tracker = trk.Tracker(config, device=device)
 
     # ------------------------------------------------------------------
+    def _expect(self, sensor: str, call: str):
+        if self.tracker.base_sensor != sensor:
+            raise ValueError(f"{call} on a {self.tracker.base_sensor!r} session")
+
+    def _track(self, img, timestamp, **inputs):
+        with GLOBAL_TIMER.stage("track.process_total"):
+            self.tracker.process(img, timestamp, **inputs)
+        with GLOBAL_TIMER.stage("track.pose_return"):
+            return self.current_pose(settle=False)
+
     def track_monocular(self, img, timestamp: float, imu=None):
         """System::TrackMonocular (`System.cc:399`). Returns the frame's
         (R, t) Tcw as tensors on the session's device, or None before
         initialization."""
         if imu is not None:
             _not_ported("IMU measurements", _INERTIAL)
-        with GLOBAL_TIMER.stage("track.process_total"):
-            self.tracker.process(img, timestamp)
-        with GLOBAL_TIMER.stage("track.pose_return"):
-            return self.current_pose(settle=False)
+        self._expect(self.MONOCULAR, "track_monocular")
+        return self._track(img, timestamp)
 
     def track_stereo(self, img_left, img_right, timestamp: float, imu=None):
-        _not_ported("System.track_stereo", _STEREO)
+        """System::TrackStereo (`System.cc:244`) on a rectified pair; returns
+        as track_monocular does. Rectifying raw images from settings comes
+        with api/settings.py."""
+        if imu is not None:
+            _not_ported("IMU measurements", _INERTIAL)
+        self._expect(self.STEREO, "track_stereo")
+        return self._track(img_left, timestamp, img_right=img_right)
 
     def track_rgbd(self, img, depth, timestamp: float, imu=None):
-        _not_ported("System.track_rgbd", _STEREO)
+        """System::TrackRGBD (`System.cc:328`): an image and its registered
+        [H, W] depth map (scaled by the config's depth_factor); returns as
+        track_monocular does."""
+        if imu is not None:
+            _not_ported("IMU measurements", _INERTIAL)
+        self._expect(self.RGBD, "track_rgbd")
+        return self._track(img, timestamp, depth_map=depth)
 
     # ------------------------------------------------------------------
     def current_pose(self, settle: bool = True):
@@ -89,10 +111,13 @@ class System:
         return self.tracker.state in (trk.RECENTLY_LOST, trk.LOST)
 
     def activate_localization_mode(self):
-        _not_ported("localization-only mode", _STEREO)
+        """System::ActivateLocalizationMode (`System.cc:409`): tracking goes
+        on, mapping stops (no keyframe, no change to the map)."""
+        self.tracker.sync_mapping()
+        self.tracker.mapping_paused = True
 
     def deactivate_localization_mode(self):
-        _not_ported("localization-only mode", _STEREO)
+        self.tracker.mapping_paused = False
 
     def reset(self):
         """System::Reset: drop everything and start a fresh Atlas."""

@@ -15,12 +15,17 @@ frames against the 8192-landmark arena through K1 and K2.
 `slam(frames)` is monocular SLAM at the same width through the `System`
 façade: the bootstrap, then tracking with keyframe insertion and the
 local-mapping stack (triangulation, the fuse through K1, local BA,
-culling) on every keyframe.
+culling) on every keyframe. With a stereo or RGB-D config it does the same
+for a rectified stereo pair or an RGB-D camera: a one-frame initialization
+from measured depth, tracking through K2's stereo rows, depth landmarks at
+each keyframe, and optionally localization-only mode from a given frame.
 
 `blob_frame` and `make_scene` build a self-consistent tracking scene from
 a seed: landmarks lifted from a frame's own keypoints plus random map slots,
 and a perturbed start pose. `plane_sequence` renders the textured-plane
-scene of tests/synthetic_scene.py along its orbit, in numpy.
+scene of tests/synthetic_scene.py along its orbit, in numpy;
+`render_stereo` and `render_with_depth` give a rectified pair and an image
+with its depth map.
 """
 
 from __future__ import annotations
@@ -173,9 +178,13 @@ def tracker_config(device=None, img_wh=FULL_WH, K=FULL_K, **fields):
     """TrackerConfig at the flagship width on `device` (default CUDA): the
     JAX TrackerConfig defaults (kmax 128, lmax 8192, window 8, init BA of
     20 iterations, 80 init matches, 15 inliers, radii 15 / 4 px) with
-    OrbConfig(1000, 8) at 752x480 and K = (450, 450, 376, 240). `fields`
-    override any of them."""
+    OrbConfig(1000, 8) at 752x480 and K = (450, 450, 376, 240). A depth
+    sensor (sensor="stereo" or "rgbd", with its bf) gets th_depth 20, as
+    tests/test_slam_rgbd_stereo.py sets it. `fields` override any of
+    them."""
     fields.setdefault("orb", orb.OrbConfig(n_features=1000, n_levels=8))
+    if fields.get("sensor", "mono") != "mono":
+        fields.setdefault("th_depth", 20.0)
     return tracker.TrackerConfig(K=cam.make_pinhole(*K, device=device),
                                  img_wh=tuple(img_wh), **fields)
 
@@ -255,22 +264,32 @@ def track_sequence(cfg, init, feats, timer=tracker.no_timer):
     return out
 
 
-def slam(frames, cfg=None, device=None, timer=tracker.no_timer):
-    """Monocular SLAM over `frames` (a sequence of [H, W] images, 0.05 s
-    apart) through System.track_monocular on `device` (default CUDA):
-    initialization, tracking, keyframe insertion and local mapping on each
-    keyframe. `cfg` defaults to tracker_config() (752x480,
-    OrbConfig(1000, 8), kmax 128, lmax 8192, window 8). `timer(name)` is a
-    context manager wrapped around each frame ("frame"). Returns the
-    System, whose tracker holds the map and the trajectory."""
+def slam(frames, cfg=None, device=None, localize_from=None, timer=tracker.no_timer):
+    """SLAM over `frames`, 0.05 s apart, through the System façade on
+    `device` (default CUDA), routed on cfg.sensor: track_monocular ("mono",
+    each frame an [H, W] image), track_stereo ("stereo", each frame a
+    rectified (left, right) pair) or track_rgbd ("rgbd", each frame an
+    (image, depth map) pair). Initialization, tracking, keyframe insertion
+    and local mapping on each keyframe; from frame `localize_from` on, the
+    session runs in localization-only mode (mapping paused). `cfg` defaults
+    to tracker_config() (mono, 752x480, OrbConfig(1000, 8), kmax 128, lmax
+    8192, window 8). `timer(name)` is a context manager wrapped around each
+    frame ("frame"). Returns the System, whose tracker holds the map and the
+    trajectory."""
     from .api.system import System
 
     if cfg is None:
         cfg = tracker_config(device)
     sys_ = System(config=cfg, device=device)
-    for i, img in enumerate(frames):
+    track = {"mono": lambda f, ts: sys_.track_monocular(f, ts),
+             "stereo": lambda f, ts: sys_.track_stereo(f[0], f[1], ts),
+             "rgbd": lambda f, ts: sys_.track_rgbd(f[0], f[1], ts)}[cfg.sensor]
+    for i, frame in enumerate(frames):
+        if i == localize_from:
+            sys_.activate_localization_mode()
         with timer("frame"):
-            sys_.track_monocular(img, 0.05 * i)
+            track(frame, 0.05 * i)
+    sys_.tracker.settle()
     return sys_
 
 
@@ -332,9 +351,19 @@ def render_planes(planes, K, img_wh, R_cw, t_cw):
     """Render the planes seen from Tcw = (R_cw, t_cw): each pixel's ray is
     intersected with every plane (later planes drawn over earlier ones, as
     PlaneScene.render does) and the texture sampled bilinearly."""
+    return render_with_depth(planes, K, img_wh, R_cw, t_cw, with_depth=False)[0]
+
+
+def render_with_depth(planes, K, img_wh, R_cw, t_cw, with_depth: bool = True):
+    """(image, depth): render_planes and the [H, W] depth (camera z; rays
+    have unit z) of the surface drawn at each pixel, 0 where there is none
+    (PlaneScene.render_with_depth); depth None without with_depth."""
     w, h = img_wh
     img = np.zeros((h, w), np.float32)
-    for pl, _, tu, tv, inside in _plane_hits(planes, K, img_wh, R_cw, t_cw):
+    depth = np.zeros((h, w), np.float32) if with_depth else None
+    for pl, lam, tu, tv, inside in _plane_hits(planes, K, img_wh, R_cw, t_cw):
+        if with_depth:
+            depth = np.where(inside, lam.astype(np.float32), depth)
         tex = pl["tex"]
         size = tex.shape[0]
         u0 = np.clip(np.floor(tu), 0, size - 2).astype(np.int64)
@@ -344,18 +373,15 @@ def render_planes(planes, K, img_wh, R_cw, t_cw):
         val = ((1 - a) * (1 - b) * tex[v0, u0] + a * (1 - b) * tex[v0, u0 + 1]
                + (1 - a) * b * tex[v0 + 1, u0] + a * b * tex[v0 + 1, u0 + 1])
         img = np.where(inside, val.astype(np.float32), img)
-    return img
+    return img, depth
 
 
-def plane_depth(planes, K, img_wh, R_cw, t_cw):
-    """[H, W] depth (camera z; rays have unit z) of the surface
-    render_planes draws at each pixel, 0 where there is none
-    (PlaneScene.render_with_depth)."""
-    w, h = img_wh
-    depth = np.zeros((h, w), np.float32)
-    for _, lam, _, _, inside in _plane_hits(planes, K, img_wh, R_cw, t_cw):
-        depth = np.where(inside, lam.astype(np.float32), depth)
-    return depth
+def render_stereo(planes, K, img_wh, R_cw, t_cw, baseline: float):
+    """A rectified pair (left, right): the right camera is displaced by
+    +baseline along the left camera's x axis (PlaneScene.render_stereo)."""
+    t_right = np.asarray(t_cw, np.float64) - np.array([baseline, 0.0, 0.0])
+    return (render_planes(planes, K, img_wh, R_cw, t_cw),
+            render_planes(planes, K, img_wh, R_cw, t_right))
 
 
 def orbit_trajectory(n_frames: int, radius=0.04, advance=0.035, yaw_rate=0.004):

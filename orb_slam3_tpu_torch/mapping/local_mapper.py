@@ -1,12 +1,12 @@
-"""Local mapping (port of orb_slam3_tpu/mapping/local_mapper.py, mono).
+"""Local mapping (port of orb_slam3_tpu/mapping/local_mapper.py).
 
 The LocalMapping work unit (`LocalMapping.cc:64-282`) as functions over
 MapState: two-view triangulation of new landmarks against a neighbour
 keyframe (`CreateNewMapPoints:388`), windowed local BA through the Schur LM
 engine (`Optimizer::LocalBundleAdjustment`, `Optimizer.cc:1116`), landmark
 culling (`MapPointCulling:346`) and keyframe culling (`KeyFrameCulling:902`).
-The depth-sensor branch of `triangulate_pair` and the stereo edges of
-`local_ba` come with the stereo slice.
+With a depth sensor, triangulation prefers the measured depth and local BA
+runs the stereo (uL, v, uR) edges.
 """
 
 from __future__ import annotations
@@ -41,13 +41,13 @@ def triangulate_pair(kind: int, K, s: MapState, kf1: int, kf2: int, scale_factor
     (ratio, mutual check and epipolar gate), triangulate, and run the
     acceptance checks of CreateNewMapPoints (`LocalMapping.cc:388-712`):
     cheirality, reprojection chi2 < 5.991 sigma2 in both views, parallax.
-    At most `max_new` candidates are accepted, lowest features first.
+    With use_depth, a kf1 feature with a measured depth above min_depth is
+    placed at that depth instead, and waives the parallax gate: the depth
+    sensor is the baseline (`LocalMapping.cc:557-604`). At most `max_new`
+    candidates are accepted, lowest features first.
 
     Returns (Xw [F,3], src_feat [F], dst_feat [F], accept [F]), F = fmax:
     kf1 feature i pairs with kf2 feature dst_feat[i]."""
-    if use_depth:
-        raise NotImplementedError("triangulation with measured depth comes with the "
-                                  "stereo / RGB-D slice")
     F = s.fmax
     dev = s.device
     R1, t1 = s.kf_R[kf1], s.kf_t[kf1]
@@ -78,6 +78,13 @@ def triangulate_pair(kind: int, K, s: MapState, kf1: int, kf2: int, scale_factor
     P2 = Km @ torch.cat([R2, t2[:, None]], dim=1)
     xy2m = xy2[idx]
     Xw = two_view.triangulate(P1, P2, xy1, xy2m)
+    has_meas = torch.zeros((F,), dtype=torch.bool, device=dev)
+    if use_depth:
+        d1 = s.kf_feat_depth[kf1]
+        has_meas = d1 > min_depth
+        R1w, t1w = lie.se3_inv(R1, t1)
+        Xw_meas = lie.se3_apply(R1w, t1w, cam.unproject(kind, K, xy1) * d1[:, None])
+        Xw = torch.where(has_meas[:, None], Xw_meas, Xw)
 
     Xc1 = lie.se3_apply(R1, t1, Xw)
     Xc2 = lie.se3_apply(R2, t2, Xw)
@@ -93,7 +100,7 @@ def triangulate_pair(kind: int, K, s: MapState, kf1: int, kf2: int, scale_factor
         min=1e-9)
     finite = torch.isfinite(Xw).all(dim=-1)
 
-    accept = ok & depth_ok & reproj_ok & (cosp < 0.9998) & finite
+    accept = ok & depth_ok & reproj_ok & ((cosp < 0.9998) | has_meas) & finite
     accept = accept & (torch.cumsum(accept.to(torch.int32), 0) <= max_new)
     return Xw, torch.arange(F, dtype=torch.int32, device=dev), idx.to(torch.int32), accept
 
@@ -173,14 +180,18 @@ def cull_keyframes(s: MapState, window_rows, min_redundancy: float = 0.9,
 
 
 def local_ba(kind: int, K, s: MapState, window_rows, n_fixed: int = 2,
-             window: int = 8, iters: int = 10, scale_factors=None):
-    """Windowed local BA over `window` keyframe rows (padded with repeats)
-    with mono reprojection edges: the first n_fixed entries are held fixed
-    (gauge anchoring); landmarks observed in the window are free, all others
-    fixed. Writes back the optimized poses (projected onto SO(3)) and
-    landmarks, and detaches the observations whose chi2 exceeds 9.21
-    afterwards (`Optimizer.cc:1413-1475`). Returns (state, BAStats). The
-    JAX function's stereo edges come with the stereo slice."""
+             window: int = 8, iters: int = 10, scale_factors=None,
+             stereo: bool = False, bf: float = 0.0):
+    """Windowed local BA over `window` keyframe rows (padded with repeats):
+    the first n_fixed entries are held fixed (gauge anchoring); landmarks
+    observed in the window are free, all others fixed. Mono edges are the
+    2-dim reprojection; with `stereo` every edge is the 3-dim (uL, v, uR)
+    residual with uR = uL - bf / z, whose third row carries no weight where
+    the feature has no right coordinate (ur < 0; EdgeStereoSE3ProjectXYZ,
+    `Optimizer.cc:1325-1352`). Writes back the optimized poses (projected
+    onto SO(3)) and landmarks, and detaches the observations whose chi2
+    exceeds the 99% gate afterwards (9.21 mono, 7.815 stereo;
+    `Optimizer.cc:1413-1475`). Returns (state, BAStats)."""
     W, F, L = window, s.fmax, s.lmax
     dev = s.device
     rows = torch.as_tensor(window_rows, device=dev).long()
@@ -205,7 +216,24 @@ def local_ba(kind: int, K, s: MapState, window_rows, n_fixed: int = 2,
     observed = mark(L, lm_edge, mask, dev)
     cam_fixed = (torch.arange(W, device=dev) < n_fixed) | ~first_occ
 
-    res = lm_edges.make_mono_residual(kind)
+    E = W * F
+    K_edges = K[None].expand(E, K.shape[0])
+    if stereo:
+        ur = s.kf_feat_ur[rows].reshape(-1)
+        has_ur = ur >= 0.0
+        uvr = torch.cat([uv, torch.where(has_ur, ur, 0.0)[:, None]], dim=1)
+        ones = torch.ones_like(ur)
+        obs_info = torch.diag_embed(
+            torch.stack([ones, ones, has_ur.to(torch.float32)], dim=-1) * inv_sigma2[:, None])
+        obs_data = {"uvr": uvr, "K": K_edges,
+                    "bf": torch.full((E,), float(bf), dtype=torch.float32, device=dev)}
+        res = lm_edges.make_stereo_residual(kind)
+        residual_dim, huber, gate = 3, robust.CHI2_3DOF ** 0.5, 7.815
+    else:
+        obs_info = inv_sigma2
+        obs_data = {"uv": uv, "K": K_edges}
+        res = lm_edges.make_mono_residual(kind)
+        residual_dim, huber, gate = 2, robust.CHI2_2DOF ** 0.5, 9.21
 
     def ba_residual(cam_state, x, data):
         return res(cam_state, {"x": x}, data)
@@ -213,15 +241,14 @@ def local_ba(kind: int, K, s: MapState, window_rows, n_fixed: int = 2,
     bap = schur.BAProblem(
         cams=lm_edges.make_pose_block(s.kf_R[rows], s.kf_t[rows], cam_fixed),
         points=s.lm_pos, point_fixed=~observed, cam_idx=cam_idx, lm_idx=lm_edge,
-        obs_data={"uv": uv, "K": K[None].expand(W * F, K.shape[0])}, obs_info=inv_sigma2,
-        obs_mask=mask, cam_edges=(), residual_dim=2, residual=ba_residual,
-        huber_delta=robust.CHI2_2DOF ** 0.5,
+        obs_data=obs_data, obs_info=obs_info, obs_mask=mask, cam_edges=(),
+        residual_dim=residual_dim, residual=ba_residual, huber_delta=huber,
     )
     solved, stats = schur.solve(bap, num_iters=iters, lam0=1e-5)
 
     # detach outliers at the optimized state (gate at the 99% quantile: a
     # detach is permanent until a fuse pass re-binds)
-    inlier = schur.obs_chi2(solved) < 9.21
+    inlier = schur.obs_chi2(solved) < gate
     new_feat_lm = torch.where((mask & ~inlier).reshape(W, F), NO_LM, s.kf_feat_lm[rows])
     rows_w = torch.where(first_occ, rows, s.kmax)  # duplicate slots write nothing
     # SO(3) projection of the written poses: repeated BA runs otherwise

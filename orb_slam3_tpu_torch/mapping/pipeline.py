@@ -14,10 +14,11 @@ A `KFPackage` carries one keyframe's tracking output into them (the role
 of `LocalMapping::InsertKeyFrame`'s queue entry, `LocalMapping.cc:284`).
 Where the JAX program selects on device values (`jax.lax.top_k`, `where`
 on a cull flag), the port reads the few scalars it branches on to the host
-once: the keyframe row, the two top-k lists and the cull flag. The stage
-helpers of the inertial path (`insert_keyframe_pkg`, `triangulate_mono`,
-`fuse_recent`, `ba_window`, `cull`) come with the inertial slice; the
-depth-landmark branch of `map_stage_pre` with the stereo / RGB-D slice.
+once: the keyframe row, the two top-k lists and the cull flag. A depth
+sensor's keyframe also makes landmarks from its measured depths, and its
+local BA runs stereo edges. The stage helpers of the inertial path
+(`insert_keyframe_pkg`, `triangulate_mono`, `fuse_recent`, `ba_window`,
+`cull`) come with the inertial slice.
 """
 
 from __future__ import annotations
@@ -29,7 +30,9 @@ import torch
 
 from ..atlas import ops as atlas_ops
 from ..atlas import state as atlas_state
+from ..frontend import camera as cam
 from ..frontend import matching
+from ..ops import lie
 from ..ops.scatter import mark
 from . import fuse, local_mapper
 
@@ -86,11 +89,14 @@ def map_stage_pre(kind: int, K8, s: atlas_state.MapState, R, t, timestamp,
     lower row, as `lax.top_k` gives them); the fuse runs into the keyframe
     and its n_fuse - 1 best covisible neighbours (the keyframe again where
     a neighbour is missing), over the landmarks bound in its covisibility
-    neighbourhood. `bf`, `th_depth`, `min_depth` and `feat_ur` serve the
-    depth-sensor branch, which comes with the stereo / RGB-D slice."""
-    if with_depth:
-        raise NotImplementedError("depth landmarks at keyframe insertion come with the "
-                                  "stereo / RGB-D slice")
+    neighbourhood.
+
+    with_depth (a depth sensor's keyframe): every unbound feature with a
+    depth above min_depth that is closer than bf * th_depth / fx, or among
+    the 100 nearest, becomes a landmark at its measured depth
+    (`Tracking.cc:3247-3331`; ties in depth go to the lower feature, as the
+    JAX program's stable argsort gives them), and triangulation prefers the
+    measured depth (`local_mapper.triangulate_pair`)."""
     Kc, L = s.kmax, s.lmax
     dev = s.device
 
@@ -105,9 +111,24 @@ def map_stage_pre(kind: int, K8, s: atlas_state.MapState, R, t, timestamp,
         s, R, t, timestamp, feat_xy, feat_octave, feat_angle, feat_desc, feat_valid,
         feat_lm=feat_lm, feat_ur=feat_ur, feat_depth=feat_depth, parent=parent, prev=parent)
 
+    kf = int(kf)
+    if with_depth:
+        F = feat_xy.shape[0]
+        has_depth = (feat_depth > min_depth) & feat_valid & (s.kf_feat_lm[kf] < 0)
+        th_depth_m = torch.full((), float(bf), dtype=torch.float32, device=dev) * th_depth / K8[0]
+        # rank of each feature in depth order: the inverse of a stable sort
+        order = torch.argsort(torch.where(has_depth, feat_depth, torch.inf), stable=True)
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(F, device=dev)
+        close = has_depth & ((feat_depth < th_depth_m) | (rank < 100))
+        Rw, tw = lie.se3_inv(R, t)
+        Xw = lie.se3_apply(Rw, tw, cam.unproject(kind, K8, feat_xy) * feat_depth[:, None])
+        col = torch.full((F,), kf, dtype=torch.int32, device=dev)
+        s, _ = atlas_ops.add_landmarks(s, Xw, feat_desc, col, close, col,
+                                       torch.arange(F, dtype=torch.int32, device=dev))
+
     # covisibility of the fresh keyframe and its best neighbours: one host
     # read of the keyframe row and both top-k lists
-    kf = int(kf)
     W_row = _covis_row(atlas_state.covisibility_weights(s), kf, s.kf_valid)
     n_nb = max(n_fuse - 1, 1)
     k = max(n_tri, n_nb)
@@ -122,7 +143,7 @@ def map_stage_pre(kind: int, K8, s: atlas_state.MapState, R, t, timestamp,
         if nbr < 0 or nbr == kf:
             continue  # the JAX stage masks this pair's accept to nothing
         Xw, f1, f2, accept = local_mapper.triangulate_pair(
-            kind, K8, s, kf, nbr, scale_factors)
+            kind, K8, s, kf, nbr, scale_factors, use_depth=with_depth, min_depth=min_depth)
         s = local_mapper.insert_triangulated(s, kf, nbr, Xw, f1, f2, accept)
 
     # SearchInNeighbors (LocalMapping.cc:714-900): the keyframe and its best
@@ -170,7 +191,7 @@ def run_pre_stage(s, pkg: KFPackage, cfg, base_sensor: str, parent_row: int,
         else torch.zeros((F,), dtype=torch.float32, device=dev),
         pkg.stat_vis if pkg.stat_vis is not None else z_i32,
         pkg.stat_found if pkg.stat_found is not None else z_i32,
-        parent_row, scale_factors, 0.0, 0.0, 0.0,
+        parent_row, scale_factors, cfg.bf, cfg.th_depth, cfg.min_depth,
         with_depth=base_sensor != "mono" and pkg.feat_depth is not None,
         wnd=cfg.local_window + 4, local_window=cfg.local_window,
     )
@@ -179,14 +200,12 @@ def run_pre_stage(s, pkg: KFPackage, cfg, base_sensor: str, parent_row: int,
 def run_visual_ba(s: atlas_state.MapState, cfg, scale_factors, rows, n_fixed,
                   base_sensor: str, iters: int = 8):
     """Windowed local BA (`Optimizer::LocalBundleAdjustment`) over the
-    window rows, run to its end: the abort between iteration chunks serves
-    the background mapper, which comes with a later slice."""
-    if base_sensor != "mono":
-        raise NotImplementedError("the stereo edges of local BA come with the "
-                                  "stereo / RGB-D slice")
+    window rows, with stereo edges for a depth sensor, run to its end: the
+    abort between iteration chunks serves the background mapper, which
+    comes with a later slice."""
     s, _ = local_mapper.local_ba(
         cfg.kind, cfg.K, s, rows, n_fixed=n_fixed, window=cfg.local_window + 4,
-        iters=iters, scale_factors=scale_factors)
+        iters=iters, scale_factors=scale_factors, stereo=base_sensor != "mono", bf=cfg.bf)
     return s
 
 

@@ -12,7 +12,8 @@ mask = (chi2 < gate) & valid after each round.
 Batched: problem b of B is one thread-block cluster of `cluster_size(N)`
 CTAs (csrc/pose_kernel.cu). `pose_ba` launches the kernel for CUDA tensors
 and runs `pose_ba_plain` (the same arithmetic, vectorised over rows) for CPU
-tensors only. `launches` counts kernel launches.
+tensors only. `launches` counts kernel launches, `stereo_launches` those of
+the stereo template.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
 launches = 0
+stereo_launches = 0
 
 
 def _rodrigues(px, py, pz):
@@ -289,6 +291,7 @@ def pose_ba(K, R0, t0, uv, Xw, inv_sigma2, valid, ur=None, bf=None,
     )
     if rc != 0:
         raise RuntimeError(f"pose_kernel launch failed with CUDA error {rc}")
-    global launches
+    global launches, stereo_launches
     launches += 1
+    stereo_launches += int(stereo)
     return R, t, inl, n

@@ -1,5 +1,6 @@
-"""Monocular tracking state machine with synchronous local mapping (port of
-the mono visual path of orb_slam3_tpu/tracking/tracker.py).
+"""Tracking state machine with synchronous local mapping (port of the
+pinhole visual paths of orb_slam3_tpu/tracking/tracker.py: mono, stereo
+and RGB-D).
 
 - `initialize_monocular`: `Tracker._try_initialize`
   (MonocularInitialization + CreateInitialMapMonocular,
@@ -10,25 +11,30 @@ the mono visual path of orb_slam3_tpu/tracking/tracker.py).
   host where the JAX tracker does: one stacked fetch of three gate scalars,
   the reconstruction, the keyframe rows and the landmark depths.
 - `track_frame`: the covisibility-local map mask of the reference keyframe
-  and the mono fused tracking step (`Tracker._local_map_mask`,
-  `_track_frame_fused`), through kernels K1 and K2.
+  and the fused tracking step (`Tracker._local_map_mask`,
+  `_track_frame_fused`), through kernels K1 and K2; with a depth sensor the
+  pose BA takes the frame's stereo rows (K2's stereo template) and the
+  step counts the close points NeedNewKeyFrame reads.
 - `Tracker`: the state machine of `Tracking::Track()` (`Tracking.cc:
-  1794-2332`) for a monocular camera: NOT_INITIALIZED -> OK ->
-  RECENTLY_LOST -> LOST (a new map in the Atlas), the constant-velocity
-  motion model, NeedNewKeyFrame, and keyframe insertion followed by the
-  whole local-mapping stack on the same frame (`mapping/pipeline.py`: the
-  JAX tracker's `async_mapping=False` path). Each frame's outcome is read
-  on that frame, as the JAX tracker does at `pipeline_depth=1`: one host
-  read of the outcome scalars besides the two branch reads of the fused
-  step.
+  1794-2332`): NOT_INITIALIZED -> OK -> RECENTLY_LOST -> LOST (a new map in
+  the Atlas), the constant-velocity motion model, NeedNewKeyFrame, and
+  keyframe insertion followed by the whole local-mapping stack on the same
+  frame (`mapping/pipeline.py`: the JAX tracker's `async_mapping=False`
+  path). A stereo pair is two extractions and `frontend/stereo.match_stereo`;
+  an RGB-D frame binds its depth map with `depth_from_rgbd`; either
+  initializes from one frame (`StereoInitialization`). With mapping paused
+  (localization mode) a depth sensor tracks against the frozen map plus the
+  previous frame's visual-odometry points. Each frame's outcome is read on
+  that frame, as the JAX tracker does at `pipeline_depth=1`: one host read
+  of the outcome scalars besides the two branch reads of the fused step.
 
 Left out of the JAX class, each with the slice that brings it: the
 background mapper (`runtime/mapper.py`) with its commits and the software
 pipeline of in-flight frames (a later slice; ROADMAP Queue 1 item 10);
-stereo / RGB-D initialization and tracking, localization-only mode and
-keypoint undistortion (item 12); the IMU (item 13); relocalization, loop
-closing and global BA (item 14: until then `_try_relocalize` returns False,
-as the JAX one does without a loop closer, `tracker.py:690-691`).
+fisheye stereo and keypoint undistortion (item 12b); the IMU (item 13);
+relocalization, loop closing and global BA (item 14: until then
+`_try_relocalize` returns False, as the JAX one does without a loop closer,
+`tracker.py:690-691`).
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from .. import device as device_mod
 from ..atlas import ops as atlas_ops
 from ..atlas import state as atlas_state
 from ..frontend import camera as cam
-from ..frontend import matching, orb, two_view
+from ..frontend import matching, orb, stereo, two_view
 from ..mapping import local_mapper, pipeline
 from ..ops import lie
 from ..ops.scatter import add_at
@@ -61,12 +67,17 @@ LOST = 3
 @dataclasses.dataclass
 class TrackerConfig:
     """The fields of the JAX TrackerConfig this path reads, with its
-    defaults (`tracker.py:104-161`). Only `sensor="mono"` is ported."""
+    defaults (`tracker.py:104-161`). The sensors "mono", "stereo" and
+    "rgbd" are ported; the inertial ones come with the inertial slice."""
 
     K: torch.Tensor = None  # camera params [8]
     kind: int = cam.PINHOLE
     img_wh: tuple = (640, 480)
-    sensor: str = "mono"
+    sensor: str = "mono"            # mono | stereo | rgbd
+    bf: float = 0.0                 # baseline * fx (stereo / RGB-D)
+    min_depth: float = 0.1
+    th_depth: float = 40.0          # close-point threshold (Settings thDepth)
+    depth_factor: float = 1.0       # RGB-D depth map scaling
     orb: orb.OrbConfig = dataclasses.field(default_factory=orb.OrbConfig)
     init_min_matches: int = 80      # Tracking.cc:2492 (100 in the reference)
     min_inliers: int = 15           # Tracking.cc:3030-3061
@@ -219,12 +230,17 @@ def local_map(s: atlas_state.MapState, ref_kf: int):
 
 def track_frame(cfg: TrackerConfig, s: atlas_state.MapState, feats: orb.Features,
                 ref_kf: int, R_last, t_last, velocity=None, tracked=None,
-                last_inliers: int = 0, in_map=None):
-    """Track one mono frame against the map (`Tracker._track_frame_fused`
-    without census, two-camera stage or chained prediction). The pose is
+                last_inliers: int = 0, in_map=None, frame_ur=None, frame_depth=None,
+                th_depth_m: float = 0.0):
+    """Track one frame against the map (`Tracker._track_frame_fused`
+    without the two-camera stage or chained prediction). The pose is
     predicted by the constant-velocity model when `velocity` = (Rv, tv) is
     given, else it is the last pose. `tracked` [L] is the previous frame's
-    tracked mask; `in_map` defaults to `local_map(s, ref_kf)`. Returns the
+    tracked mask; `in_map` defaults to `local_map(s, ref_kf)`. With
+    `frame_ur` [F] (a depth sensor's right coordinates, -1 where none) the
+    pose BA runs mono and stereo rows with cfg.bf; with `frame_depth` [F]
+    the step also counts the tracked and untracked close points (depth in
+    (cfg.min_depth, th_depth_m)) into scal[2:4]. Returns the
     track_frame_visual outputs and the predicted pose (R_pred, t_pred)."""
     dev = s.device
     if in_map is None:
@@ -239,17 +255,21 @@ def track_frame(cfg: TrackerConfig, s: atlas_state.MapState, feats: orb.Features
                   else torch.zeros((s.fmax,), dtype=torch.bool, device=dev))
     if tracked is None:
         tracked = torch.zeros((s.lmax,), dtype=torch.bool, device=dev)
+    use_stereo = frame_ur is not None
+    if not use_stereo:
+        frame_ur = -torch.ones((s.fmax,), dtype=torch.float32, device=dev)
     out = track_mod.track_frame_visual(
-        cfg.kind, cfg.K, 0.0,
+        cfg.kind, cfg.K, cfg.bf if use_stereo else 0.0,
         s.lm_pos, s.lm_desc, in_map, s.lm_max_dist, s.lm_min_dist, s.lm_normal,
         s.kf_feat_desc[kf], ref_has_lm, ref_lm_rows,
-        feats.xy, feats.descriptors, feats.octave, feats.valid,
-        -torch.ones((s.fmax,), dtype=torch.float32, device=dev),
+        feats.xy, feats.descriptors, feats.octave, feats.valid, frame_ur,
         R_pred, t_pred, R_last, t_last,
         velocity is not None, tracked, last_inliers,
         cfg.match_radius_coarse, cfg.match_radius_fine, cfg.min_inliers,
         cfg.scale_factors(), float(cfg.img_wh[0]), float(cfg.img_wh[1]),
-        use_stereo=False,
+        use_stereo=use_stereo,
+        with_census=frame_depth is not None, feat_depth=frame_depth,
+        min_depth=cfg.min_depth, th_depth_m=th_depth_m,
         R_kf=s.kf_R[kf] if ref_kf >= 0 else None,
         t_kf=s.kf_t[kf] if ref_kf >= 0 else None,
     )
@@ -290,25 +310,32 @@ def _np(a):
 
 
 class Tracker:
-    """The monocular tracker with synchronous local mapping.
+    """The tracker of a pinhole camera (mono, stereo or RGB-D) with
+    synchronous local mapping.
 
     `cfg.K` may be a tensor, whose device the tracker runs on, or anything
     numpy reads, which is moved to `device` (default CUDA; RuntimeError
     without it). Feed frames with `process`; read the trajectory with
-    `poses`."""
+    `poses`. Set `mapping_paused` for localization-only mode."""
 
     def __init__(self, cfg: TrackerConfig, device=None):
-        if cfg.sensor != "mono":
+        if cfg.sensor.endswith("-imu"):
             raise NotImplementedError(
-                f"sensor {cfg.sensor!r}: only 'mono' is ported; stereo / RGB-D come with "
-                "their slice, the inertial sensors with the inertial slice")
+                f"sensor {cfg.sensor!r}: the inertial sensors come with the inertial slice "
+                "(ROADMAP Queue 1 item 13)")
+        if cfg.sensor not in ("mono", "stereo", "rgbd"):
+            raise ValueError(f"unknown sensor {cfg.sensor!r}")
         if device is None and torch.is_tensor(cfg.K):
             device = cfg.K.device
         dev = device_mod.resolve(device)
-        K = torch.as_tensor(np.asarray(_np(cfg.K), np.float32), device=dev)
+        K_np = np.asarray(_np(cfg.K), np.float32)
+        K = torch.as_tensor(K_np, device=dev)
         # the tracker's own copy: growing the arena updates kmax / lmax
         self.cfg = dataclasses.replace(cfg, K=K)
         self.device = dev
+        self.base_sensor = cfg.sensor
+        # close points lie nearer than bf * thDepth / fx (Tracking.cc:628)
+        self.th_depth_m = cfg.bf * cfg.th_depth / float(K_np[0])
         self.map = empty_map(self.cfg, device=dev)
         self.state = NOT_INITIALIZED
         self.scale_factors = self.cfg.scale_factors()
@@ -322,6 +349,11 @@ class Tracker:
         self.frames_since_kf = 0
         self.trajectory: list[FrameRecord] = []
         self.lost_count = 0
+        self.mapping_paused = False   # localization-only mode (System.cc:409)
+        self._frame_ur = None         # [F] this frame's right coordinates (depth sensors)
+        self._frame_depth = None      # [F] and depths
+        self._census = None           # (tracked, untracked) close points of this frame
+        self._vo_buffer = None        # localization mode: last frame's VO points
         self._map_version = 0         # bumps on structural map updates
         self._tracked_lms = None      # [L] landmarks tracked by the last frame
         self._feat_lm = None          # [F] landmark row of each feature of it
@@ -435,9 +467,16 @@ class Tracker:
         return False
 
     # ------------------------------------------------------------------
-    def process(self, img, timestamp: float):
-        """Track one monocular frame ([H, W] image, anything torch.as_tensor
-        reads) taken at `timestamp` seconds."""
+    def _to_device(self, img):
+        return torch.as_tensor(np.asarray(img) if not torch.is_tensor(img) else img,
+                               dtype=torch.float32, device=self.device)
+
+    def process(self, img, timestamp: float, img_right=None, depth_map=None):
+        """Track one frame ([H, W] image, anything torch.as_tensor reads)
+        taken at `timestamp` seconds: a stereo sensor passes the right image
+        of the rectified pair as img_right, an RGB-D sensor its [H, W] depth
+        map as depth_map (System::TrackStereo / TrackRGBD routing,
+        `System.cc:244,328`)."""
         with GLOBAL_TIMER.stage("track.adopt"):
             self._maybe_compact()
         # timestamp sanity (Tracking.cc:1818-1855): a backwards step stores
@@ -449,17 +488,48 @@ class Tracker:
                 self._timestamp_jump()
             elif gap > 1.0:
                 self.velocity = None
+        stereo_pair = self.base_sensor == "stereo"
         with GLOBAL_TIMER.stage("track.img_xfer"):
-            img = torch.as_tensor(np.asarray(img) if not torch.is_tensor(img) else img,
-                                  dtype=torch.float32, device=self.device)
+            img = self._to_device(img)
+            if stereo_pair:
+                img_right = self._to_device(img_right)
+            elif self.base_sensor == "rgbd":
+                depth_map = self._to_device(depth_map)
         with GLOBAL_TIMER.stage("orb_extraction"):
+            # the two extractions run one after the other, as in the JAX
+            # tracker's pair program (tracker.py:66-73)
             feats = self._extract(img)
+            feats_r = self._extract(img_right) if stereo_pair else None
+        ur = depth = None
+        if stereo_pair:
+            with GLOBAL_TIMER.stage("track.stereo_depth"):
+                ur, depth, _ = stereo.match_stereo(
+                    feats.xy, feats.octave, feats.descriptors, feats.valid,
+                    feats_r.xy, feats_r.octave, feats_r.descriptors, feats_r.valid,
+                    img, img_right, self.scale_factors, self.cfg.bf, self.cfg.min_depth)
+        elif self.base_sensor == "rgbd":
+            with GLOBAL_TIMER.stage("track.stereo_depth"):
+                ur, depth, _ = stereo.depth_from_rgbd(feats.xy, depth_map, self.cfg.bf,
+                                                      self.cfg.depth_factor)
+        self._frame_ur, self._frame_depth = ur, depth
         rel = None
         if self.state == NOT_INITIALIZED:
-            ok = self._try_initialize(feats, timestamp)
+            if self.base_sensor == "mono":
+                ok = self._try_initialize(feats, timestamp)
+            else:
+                ok = self._initialize_with_depth(feats, ur, depth, timestamp)
         else:
             ok, rel = self._track_frame(feats, timestamp)
         self._record_frame(timestamp, ok, rel)
+
+    def sync_mapping(self):
+        """Barrier before the caller reads or freezes the map. Mapping runs
+        on this thread, so nothing is queued and nothing is waited for."""
+
+    def settle(self):
+        """Barrier after the last frame: every frame's outcome is already
+        read on that frame (the JAX tracker at pipeline_depth=1), so there
+        is nothing in flight."""
 
     def _timestamp_jump(self):
         """Timestamp discontinuity: store the active map and continue in a
@@ -517,6 +587,42 @@ class Tracker:
         return True
 
     # ------------------------------------------------------------------
+    # stereo / RGB-D initialization (StereoInitialization, Tracking.cc:2335)
+    # ------------------------------------------------------------------
+    def _initialize_with_depth(self, feats, ur, depth, timestamp) -> bool:
+        """One keyframe at the origin and a landmark unprojected from every
+        keypoint with a measured depth (`Tracking.cc:2365-2395`), once the
+        frame has 100 keypoints and 50 depths (the reference asks for 500
+        keypoints at its full budget, :2337). One host read of both counts."""
+        cfg = self.cfg
+        has_depth = (depth > cfg.min_depth) & feats.valid
+        n_kp, n_depth = (int(v) for v in torch.stack([feats.valid.sum(), has_depth.sum()]).tolist())
+        if n_kp < 100 or n_depth < 50:
+            return False
+        dev = self.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        s, kf0 = atlas_ops.add_keyframe(
+            self.map, torch.eye(3, **f32), torch.zeros(3, **f32), timestamp,
+            feats.xy, feats.octave, feats.angle, feats.descriptors, feats.valid,
+            feat_ur=ur, feat_depth=depth)
+        kf0 = int(kf0)
+        X = cam.unproject(cfg.kind, cfg.K, feats.xy) * depth[:, None]
+        F = X.shape[0]
+        col = torch.full((F,), kf0, dtype=torch.int32, device=dev)
+        s, _ = atlas_ops.add_landmarks(s, X, feats.descriptors, col, has_depth, col,
+                                       torch.arange(F, dtype=torch.int32, device=dev))
+        self.map = atlas_state.update_landmark_stats(s)
+        self.state = OK
+        self.last = {"R": torch.eye(3, **f32), "t": torch.zeros(3, **f32), "feats": feats,
+                     "ts": timestamp}
+        self.velocity = None
+        self.last_kf_row = kf0
+        self.last_kf_inliers = n_depth
+        self.frames_since_kf = 0
+        self._map_version += 1
+        return True
+
+    # ------------------------------------------------------------------
     # per-frame tracking (TrackWithMotionModel + TrackLocalMap)
     # ------------------------------------------------------------------
     def _track_frame(self, feats, timestamp):
@@ -538,14 +644,21 @@ class Tracker:
             self._new_map_if_lost()
             return False, None
 
+        if self.mapping_paused and self._frame_depth is not None:
+            return self._track_frame_localization(feats, timestamp, s), None
+
         kf_row = self.last_kf_row
         with GLOBAL_TIMER.stage("track.fused_step"):
             out = track_frame(
                 cfg, s, feats, kf_row, self.last["R"], self.last["t"],
                 velocity=self.velocity, tracked=self._tracked_lms,
-                last_inliers=self.last_inliers, in_map=self._local_map_mask(s))
-            n_inliers, vel_poisoned = (int(v) for v in out["scal"][:2].tolist())
+                last_inliers=self.last_inliers, in_map=self._local_map_mask(s),
+                frame_ur=self._frame_ur, frame_depth=self._frame_depth,
+                th_depth_m=self.th_depth_m)
+            n_inliers, vel_poisoned, n_close_tracked, n_close_untracked = out["scal"].tolist()
         self.last_inliers = n_inliers
+        self._census = ((n_close_tracked, n_close_untracked) if self._frame_depth is not None
+                        else None)
 
         if n_inliers < cfg.min_inliers:
             self.lost_count += 1
@@ -578,6 +691,105 @@ class Tracker:
         rel = (out["R_rel"], out["t_rel"]) if kf_row == self.last_kf_row else None
         return True, rel
 
+    def _match_and_optimize(self, s, feats, R0, t0, lm_mask, radius):
+        """Projection search and motion-only BA of the map against the frame
+        (`Tracker._match_and_optimize` without the statistics): the frame's
+        stereo rows where it has them. Returns (R normalized, t)."""
+        cfg = self.cfg
+        idx, ok, _, _, _ = track_mod.match_local_map(
+            cfg.kind, cfg.K, R0, t0, s.lm_pos, s.lm_desc, lm_mask,
+            s.lm_max_dist, s.lm_min_dist, s.lm_normal,
+            feats.xy, feats.descriptors, feats.octave, feats.valid,
+            radius, self.scale_factors, img_wh=(float(cfg.img_wh[0]), float(cfg.img_wh[1])))
+        idx = idx.long()
+        uv = feats.xy[idx]
+        inv_sig2 = self._inv_sigma2(feats.octave[idx])
+        if self._frame_ur is None:
+            R, t, _, _ = track_mod.pose_optimize(cfg.kind, cfg.K, R0, t0, uv, s.lm_pos,
+                                                 inv_sig2, ok)
+        else:
+            ur_edge = torch.where(ok, self._frame_ur[idx], -1.0)
+            R, t, _, _ = track_mod.pose_optimize_stereo(
+                cfg.kind, cfg.K, cfg.bf, R0, t0, uv, ur_edge, s.lm_pos, inv_sig2, ok)
+        return lie.normalize_rotation(R), t
+
+    def _inv_sigma2(self, octave):
+        n_levels = self.scale_factors.shape[0]
+        return 1.0 / self.scale_factors[torch.clamp(octave, 0, n_levels - 1).long()] ** 2
+
+    def _track_frame_localization(self, feats, timestamp, s) -> bool:
+        """Localization-only mode with a depth sensor (mbOnlyTracking,
+        `Tracker._track_frame_localization`): the pose against the frozen
+        map (a coarse match and pose BA at the predicted pose, then a fine
+        match) plus the previous frame's visual-odometry points, unprojected
+        from its depths (`Tracking::UpdateLastFrame`, `Tracking.cc:
+        2788-2851`), in one pose BA over the map's rows and the VO rows. The
+        VO points match through K1 like landmarks without a distance range
+        or normal, and live one frame. Tracking health is judged on all
+        inliers, as the JAX tracker does (it computes the map inliers but
+        does not use them). No keyframe is made and the map is not
+        touched."""
+        cfg = self.cfg
+        R_last, t_last = self.last["R"], self.last["t"]
+        if self.velocity is not None:
+            R_pred, t_pred = lie.se3_mul(self.velocity[0], self.velocity[1], R_last, t_last)
+        else:
+            R_pred, t_pred = R_last, t_last
+        in_map = self._local_map_mask(s)
+        img_wh = (float(cfg.img_wh[0]), float(cfg.img_wh[1]))
+        with GLOBAL_TIMER.stage("track.localization"):
+            R1, t1 = self._match_and_optimize(s, feats, R_pred, t_pred, in_map,
+                                              cfg.match_radius_coarse)
+            idx, ok, _, _, _ = track_mod.match_local_map(
+                cfg.kind, cfg.K, R1, t1, s.lm_pos, s.lm_desc, in_map,
+                s.lm_max_dist, s.lm_min_dist, s.lm_normal,
+                feats.xy, feats.descriptors, feats.octave, feats.valid,
+                cfg.match_radius_fine, self.scale_factors, img_wh=img_wh)
+            idx = idx.long()
+            uv_all, X_all = feats.xy[idx], s.lm_pos
+            inv_all, ok_all = self._inv_sigma2(feats.octave[idx]), ok
+            if self._vo_buffer is not None:
+                vo_pos, vo_desc, vo_valid = self._vo_buffer
+                Fv = vo_pos.shape[0]
+                f32 = dict(dtype=torch.float32, device=self.device)
+                vidx, vok, _, _, _ = track_mod.match_local_map(
+                    cfg.kind, cfg.K, R1, t1, vo_pos, vo_desc, vo_valid,
+                    torch.full((Fv,), 1e6, **f32), torch.zeros((Fv,), **f32),
+                    torch.zeros((Fv, 3), **f32),
+                    feats.xy, feats.descriptors, feats.octave, feats.valid,
+                    cfg.match_radius_fine, self.scale_factors, img_wh=img_wh)
+                vidx = vidx.long()
+                uv_all = torch.cat([uv_all, feats.xy[vidx]])
+                X_all = torch.cat([X_all, vo_pos])
+                inv_all = torch.cat([inv_all, self._inv_sigma2(feats.octave[vidx])])
+                ok_all = torch.cat([ok, vok])
+            R2, t2, inlier, n2 = track_mod.pose_optimize(cfg.kind, cfg.K, R1, t1, uv_all,
+                                                         X_all, inv_all, ok_all)
+            R2 = lie.normalize_rotation(R2)
+            # the VO buffer for the next frame, from this one's depths
+            depth = self._frame_depth
+            fresh = feats.valid & (depth > cfg.min_depth) & (depth < self.th_depth_m)
+            Xc = cam.unproject(cfg.kind, cfg.K, feats.xy) * depth[:, None]
+            Rw, tw = lie.se3_inv(R2, t2)
+            self._vo_buffer = (lie.se3_apply(Rw, tw, Xc), feats.descriptors, fresh)
+            n_inliers = int(n2)
+        self.last_inliers = n_inliers
+        if n_inliers < cfg.min_inliers:
+            self.lost_count += 1
+            self.state = RECENTLY_LOST if self.lost_count < 5 else LOST
+            self.last = {"R": R_pred, "t": t_pred, "feats": feats, "ts": timestamp}
+            self.velocity = None
+            self._tracked_lms = None
+            return self._try_relocalize(feats)
+        self.lost_count = 0
+        self.state = OK
+        Rl_inv, tl_inv = lie.se3_inv(R_last, t_last)
+        Rv, tv = lie.se3_mul(R2, t2, Rl_inv, tl_inv)
+        self.velocity = (lie.normalize_rotation(Rv), tv)
+        self.last = {"R": R2, "t": t2, "feats": feats, "ts": timestamp}
+        self._tracked_lms = inlier[:s.lmax]
+        return True
+
     def _new_map_if_lost(self):
         """A persistent loss of a mature map starts a new map in the Atlas
         (Tracking::CreateMapInAtlas, `Tracking.cc:2014-2032`)."""
@@ -589,15 +801,26 @@ class Tracker:
             self.last_kf_row = -1
 
     def _need_new_keyframe(self, n_inliers: int) -> bool:
-        """NeedNewKeyFrame (`Tracking.cc:3064-3187`) for a monocular camera
-        with synchronous mapping (the mapper is always idle): c1a (max
-        frames), c1b (min frames), c2 (tracked ratio 0.9 against the
-        reference keyframe's map points observed >= 3 times, or the
+        """NeedNewKeyFrame (`Tracking.cc:3064-3187`) with synchronous
+        mapping (the mapper is always idle, so the JAX tracker's rules for a
+        busy mapper never apply): nothing while mapping is paused; c1a (max
+        frames), c1b (min frames), c1c for a depth sensor (weak tracking, or
+        fewer than 100 tracked and more than 70 untracked close points,
+        `:3106-3128`), c2 (tracked ratio against the reference keyframe's
+        map points observed >= 3 times: 0.9 mono, else kf_tracked_ratio, 0.4
+        below two keyframes; the close-point deficit; or the
         kf_tracked_ratio decay against the inliers at the last insertion),
         and the cadence ceiling (at most kf_max_frames frames without a
         keyframe)."""
         cfg = self.cfg
+        if self.mapping_paused:
+            return False
         n_kfs = self._n_kf_cache()
+        need_close = False
+        depth_sensor = self.base_sensor != "mono"
+        if depth_sensor and self._census is not None:
+            n_tracked_close, n_untracked_close = self._census
+            need_close = n_tracked_close < 100 and n_untracked_close > 70
         if self.last_kf_row >= 0:
             # nMinObs = 3 (2 for tiny maps, Tracking.cc:3097-3099)
             min_obs = 3 if n_kfs > 2 else min(n_kfs, 2)
@@ -607,20 +830,25 @@ class Tracker:
                                                         min_obs)), 1))
         else:
             ref_matches = max(self.last_kf_inliers, 1)
-        th_ratio = 0.9  # Tracking.cc:3144
+        if self.base_sensor == "mono":
+            th_ratio = 0.9  # Tracking.cc:3144
+        else:
+            th_ratio = cfg.kf_tracked_ratio if n_kfs >= 2 else 0.4
         c1a = self.frames_since_kf >= cfg.kf_max_frames
         c1b = self.frames_since_kf >= cfg.kf_min_frames
-        c2 = ((n_inliers < th_ratio * ref_matches
+        c1c = depth_sensor and (n_inliers < 0.25 * ref_matches or need_close)
+        c2 = ((n_inliers < th_ratio * ref_matches or need_close
                or n_inliers < cfg.kf_tracked_ratio * max(self.last_kf_inliers, 1))
               and n_inliers > cfg.min_inliers)
         c_ceiling = c1a and n_inliers > cfg.min_inliers
-        return ((c1a or c1b) and c2) or c_ceiling
+        return ((c1a or c1b or c1c) and c2) or c_ceiling
 
     # ------------------------------------------------------------------
     def _insert_keyframe(self, feats, timestamp, n_inliers: int):
         """Keyframe insertion and the whole local-mapping stack on this
         frame (the JAX tracker's visual path with async_mapping=False):
-        map_stage_pre -> local BA -> map_stage_post."""
+        map_stage_pre -> local BA -> map_stage_post. A depth sensor's
+        keyframe carries the frame's right coordinates and depths."""
         cfg = self.cfg
         if self._n_kf_cache() >= cfg.kmax - 1:
             self._maybe_compact()
@@ -630,14 +858,15 @@ class Tracker:
             R=self.last["R"], t=self.last["t"], timestamp=timestamp,
             feat_xy=feats.xy, feat_octave=feats.octave, feat_angle=feats.angle,
             feat_desc=feats.descriptors, feat_valid=feats.valid, feat_lm=self._feat_lm,
-            feat_ur=None, feat_depth=None, n_inliers=n_inliers,
+            feat_ur=self._frame_ur, feat_depth=self._frame_depth, n_inliers=n_inliers,
         )
         dev = self.device
         with GLOBAL_TIMER.stage_sync("map.pre", dev):
             s, kf, ba_rows, n_fixed = pipeline.run_pre_stage(
-                self.map, pkg, cfg, "mono", self.last_kf_row, self.scale_factors)
+                self.map, pkg, cfg, self.base_sensor, self.last_kf_row, self.scale_factors)
         with GLOBAL_TIMER.stage_sync("map.local_ba", dev):
-            s = pipeline.run_visual_ba(s, cfg, self.scale_factors, ba_rows, n_fixed, "mono")
+            s = pipeline.run_visual_ba(s, cfg, self.scale_factors, ba_rows, n_fixed,
+                                       self.base_sensor)
         with GLOBAL_TIMER.stage_sync("map.culling", dev):
             s = pipeline.map_stage_post(s, ba_rows, cfg.local_window + 4)
         self.map = s

@@ -127,7 +127,7 @@ def test_k1_no_keypoints(cuda, N):
     assert (idx == 0).all() and (dist == mk.BIG).all() and not ok.any()
 
 
-def _k2_case(B, N, stereo, seed):
+def _k2_case(B, N, stereo, seed, frac_mono=0.5):
     rng = np.random.default_rng(seed)
     Xw = np.concatenate([rng.uniform(-3, 3, (B, N, 2)), rng.uniform(4, 9, (B, N, 1))], 2)
     Rt, tt = lie.se3_exp(torch.from_numpy(rng.normal(size=(B, 6)) * 0.05))
@@ -142,7 +142,8 @@ def _k2_case(B, N, stereo, seed):
     kw = {}
     if stereo:
         ur = uv[..., 0] - 45.0 / Xc[..., 2] + rng.normal(size=(B, N)) * 0.5
-        kw = dict(ur=f(np.where(rng.uniform(size=(B, N)) < 0.5, ur, -1.0)), bf=f(np.full(B, 45.0)))
+        kw = dict(ur=f(np.where(rng.uniform(size=(B, N)) < 1.0 - frac_mono, ur, -1.0)),
+                  bf=f(np.full(B, 45.0)))
     return args, kw
 
 
@@ -253,3 +254,120 @@ def test_fuse_inversion_is_deterministic_on_the_card(cuda):
     assert ref.tolist() == want.tolist()
     for _ in range(3):
         assert torch.equal(fuse.invert_matches(idx.to(cuda), ok.to(cuda), 1000).cpu(), ref)
+
+
+# --------------------------------------------------------------- depth sensors
+@pytest.mark.parametrize("N,frac_mono", [(9192, 1.0), (8192, 0.5), (8192, 0.0)])
+def test_k2_at_the_depth_call_sites(cuda, N, frac_mono):
+    """K2 at the shapes the depth sensors give it: the mono template over
+    the localization call's map rows plus VO rows (N = lmax + F = 9192), and
+    the stereo template over a tracked depth frame's rows (N = lmax = 8192)
+    with mono rows (ur < 0) interleaved at 50% and at 0%."""
+    args, kw = _k2_case(1, N, frac_mono < 1.0, seed=N + int(100 * frac_mono),
+                        frac_mono=frac_mono)
+    if kw:
+        assert int((kw["ur"] < 0).sum()) == pytest.approx(frac_mono * N, abs=0.02 * N)
+    R_r, t_r, m_r, n_r = pk.pose_ba_plain(*args, **kw)
+    before = pk.launches
+    R_g, t_g, m_g, n_g = (x.cpu() for x in pk.pose_ba(
+        *[a.to(cuda) for a in args], **{k: v.to(cuda) for k, v in kw.items()}))
+    torch.cuda.synchronize()
+    assert pk.launches == before + 1
+    assert torch.equal(n_g, n_r) and torch.equal(m_g, m_r)
+    torch.testing.assert_close(R_g, R_r, atol=1e-5, rtol=0)
+    torch.testing.assert_close(t_g, t_r, atol=1e-4, rtol=0)
+
+
+def test_k1_at_the_vo_point_call(cuda, monkeypatch):
+    """K1 at the localization call over the previous frame's VO points, as
+    track.match_local_map hands it over: N = F = 1000 points with the
+    distance range (0, 1e6] and zero normals (so every one is predicted at
+    the top octave and searched with that octave's radius) against M = 1000
+    keypoints on 8 octaves, 200 of them at the VO points' projections with
+    their descriptors. The kernel equals its plain version exactly on the
+    inputs the call gave it."""
+    from orb_slam3_tpu_torch.tracking import track
+
+    rng = np.random.default_rng(21)
+    F = 1000
+    uv = np.stack([rng.uniform(5, 747, F), rng.uniform(5, 475, F)], 1)
+    z = rng.uniform(1.0, 6.0, F)
+    X = np.stack([(uv[:, 0] - 376) / 450 * z, (uv[:, 1] - 240) / 450 * z, z], 1)
+    desc = rng.integers(0, 256, (F, 32)).astype(np.uint8)
+    kp = np.stack([rng.uniform(0, 752, F), rng.uniform(0, 480, F)], 1)
+    kd = rng.integers(0, 256, (F, 32)).astype(np.uint8)
+    ko = rng.integers(0, 8, F)
+    kp[:200] = uv[:200] + rng.uniform(-2, 2, (200, 2))
+    kd[:200], ko[:200] = desc[:200], 7
+    f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=cuda)  # noqa: E731
+    sf = 1.2 ** torch.arange(8, dtype=torch.float32, device=cuda)
+    seen = []
+    orig = mk.search_by_projection_kernel
+
+    def record(*a, **kw):
+        seen.append((a, kw))
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(mk, "search_by_projection_kernel", record)
+    idx, ok, _, _, _ = track.match_local_map(
+        0, f([450.0, 450.0, 376.0, 240.0, 0, 0, 0, 0]), torch.eye(3, device=cuda),
+        torch.zeros(3, device=cuda), f(X), torch.from_numpy(desc).to(cuda),
+        torch.ones(F, dtype=torch.bool, device=cuda), torch.full((F,), 1e6, device=cuda),
+        torch.zeros(F, device=cuda), torch.zeros((F, 3), device=cuda), f(kp),
+        torch.from_numpy(kd).to(cuda), torch.from_numpy(ko.astype(np.int32)).to(cuda),
+        torch.ones(F, dtype=torch.bool, device=cuda), 4.0, sf, img_wh=(752.0, 480.0))
+    (a, kw), = seen
+    assert (a[1] == 7).all()  # every VO point at the top octave
+    ref = mk.search_by_projection_plain(*a, **kw)
+    got = [x for x in mk.search_by_projection_kernel(*a, **kw)]
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r.cpu())
+    assert torch.equal(ok.cpu(), ref[2].cpu()) and int(ok.sum()) >= 100
+
+
+@pytest.fixture(scope="module")
+def stereo_frame():
+    """A full-width PlaneScene stereo pair and its left depth map (the
+    port's numpy renderer), with the ORB features of both images."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from orb_slam3_tpu_torch import entry
+    from orb_slam3_tpu_torch.frontend import orb
+
+    planes = entry.plane_scene(2)
+    R, t = entry.orbit_trajectory(4)
+    left, right = entry.render_stereo(planes, entry.FULL_K, entry.FULL_WH, R[3], t[3], 0.12)
+    depth = entry.render_with_depth(planes, entry.FULL_K, entry.FULL_WH, R[3], t[3])[1]
+    cfg = orb.OrbConfig(1000, 8)
+    fl = orb.extract(torch.from_numpy(left), cfg)
+    fr = orb.extract(torch.from_numpy(right), cfg)
+    return dict(left=torch.from_numpy(left), right=torch.from_numpy(right),
+                depth=torch.from_numpy(depth), fl=fl, fr=fr, sf=cfg.scale_factors("cpu"))
+
+
+def test_match_stereo_on_the_card_matches_the_cpu(cuda, stereo_frame):
+    from orb_slam3_tpu_torch.frontend import stereo
+
+    c = stereo_frame
+    fl, fr = c["fl"], c["fr"]
+    args = (fl.xy, fl.octave, fl.descriptors, fl.valid, fr.xy, fr.octave, fr.descriptors,
+            fr.valid, c["left"], c["right"], c["sf"])
+    ur_c, d_c, ok_c = stereo.match_stereo(*args, 450.0 * 0.12, 0.1)
+    ur_g, d_g, ok_g = (x.cpu() for x in stereo.match_stereo(*[a.to(cuda) for a in args],
+                                                             450.0 * 0.12, 0.1))
+    assert torch.equal(ok_g, ok_c) and int(ok_c.sum()) >= 300
+    torch.testing.assert_close(ur_g[ok_c], ur_c[ok_c], atol=1e-3, rtol=0)
+    torch.testing.assert_close(d_g[ok_c], d_c[ok_c], atol=0, rtol=1e-4)
+
+
+def test_depth_from_rgbd_on_the_card_matches_the_cpu(cuda, stereo_frame):
+    from orb_slam3_tpu_torch.frontend import stereo
+
+    c = stereo_frame
+    out_c = stereo.depth_from_rgbd(c["fl"].xy, c["depth"], 45.0, 1.0)
+    out_g = [x.cpu() for x in stereo.depth_from_rgbd(c["fl"].xy.to(cuda), c["depth"].to(cuda),
+                                                     45.0, 1.0)]
+    for g, r in zip(out_g, out_c):
+        assert torch.equal(g, r)
+    assert int(out_c[2].sum()) >= 500

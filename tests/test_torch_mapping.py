@@ -203,9 +203,12 @@ def test_triangulate_pair_matches_jax(before_kf, nbr):
     np.testing.assert_array_equal(f2t[both], f2j[both])
     err = np.linalg.norm(Xt[both] - Xj[both], axis=1) / np.linalg.norm(Xj[both], axis=1)
     assert err.max() <= 1e-4, err.max()
-    with pytest.raises(NotImplementedError):
-        tlm.triangulate_pair(0, convert.camera(K_NP, "cpu"), convert.map_state(js, "cpu"),
-                             kf, nbr, before_kf["tsf"], use_depth=True)
+    # a mono map has no measured depth: use_depth changes nothing
+    Xd, f1d, f2d, ad = (a.numpy() for a in tlm.triangulate_pair(
+        0, convert.camera(K_NP, "cpu"), convert.map_state(js, "cpu"), kf, nbr,
+        before_kf["tsf"], use_depth=True))
+    np.testing.assert_array_equal(ad, at)
+    np.testing.assert_array_equal(Xd[ad], Xt[at])
 
 
 def _triangulated(b):

@@ -236,18 +236,21 @@ def test_system_raises_for_what_is_not_ported(session):
     cfg = session["cfg"]
     with pytest.raises(NotImplementedError, match="settings"):
         tsys.System("settings.yaml")
-    with pytest.raises(NotImplementedError, match="stereo"):
-        tsys.System(config=cfg, sensor="stereo")
     with pytest.raises(NotImplementedError, match="inertial"):
         tsys.System(config=cfg, sensor="mono-imu")
-    with pytest.raises(NotImplementedError):
-        ttrk.Tracker(ttrk.TrackerConfig(K=cfg.K, sensor="rgbd"))
+    with pytest.raises(NotImplementedError, match="inertial"):
+        ttrk.Tracker(ttrk.TrackerConfig(K=cfg.K, sensor="rgbd-imu"))
+    # stereo and RGB-D are ported: a session of one sensor refuses the others
+    with pytest.raises(ValueError, match="stereo"):
+        tsys.System(config=cfg, sensor="stereo")
     system = session["system"]
     for call in (lambda: system.track_stereo(None, None, 0.0),
-                 lambda: system.track_rgbd(None, None, 0.0),
-                 lambda: system.track_monocular(None, 0.0, imu=np.zeros((1, 7))),
-                 system.activate_localization_mode, system.run_global_ba,
-                 lambda: system.save_atlas("x"), lambda: system.start_viewer()):
+                 lambda: system.track_rgbd(None, None, 0.0)):
+        with pytest.raises(ValueError, match="'mono' session"):
+            call()
+    for call in (lambda: system.track_monocular(None, 0.0, imu=np.zeros((1, 7))),
+                 system.run_global_ba, lambda: system.save_atlas("x"),
+                 lambda: system.start_viewer()):
         with pytest.raises(NotImplementedError):
             call()
 
