@@ -85,7 +85,27 @@ Phases; any failure exits non-zero without the final `ok` line:
      the fuse's new observations per keyframe, match_stereo /
      depth_from_rgbd / extraction alone, and the device busy share over one
      depth keyframe.
-Phases 6-9 print one JSON line with each kernel's bound and launches by
+ 10. settings files at full width through entry.slam(settings_path=...)
+     (System(settings_path, "stereo").track_stereo, TrackerConfig defaults),
+     each session with the launch counters zeroed just before it: the KB8
+     fisheye rig of tests/test_slam_fisheye.py (512x384, K8, 0.3 m
+     baseline, 1000 features on 8 levels, PlaneScene seed 5, 20 frames
+     rendered by the numpy KB8 renderer: >= 70% tracked, unscaled ATE <
+     0.05) and the legacy EuRoC stereo file (LEFT./RIGHT. blocks, 752x480,
+     raw images rendered through cam0's rad-tan distortion, 0.11 m
+     baseline, seed 2, 20 frames: >= 80% tracked, ATE < 0.15); K1 at the
+     right-camera call site launched on every tracked fisheye frame and
+     equal to its plain version, K2 never launched for the KB8 camera;
+     match_stereo_fisheye (good equal on >= 99% of rows, depth within 1e-4
+     relative) and the KB8 pose_optimize_two_cam (R 1e-5 / t 1e-4) on the
+     card against the CPU; one fisheye keyframe's mapping stack on the card
+     against the CPU plain path; the StereoRectifier (1e-3) and the rad-tan
+     keypoint path (>= 97% the same keypoints, 1e-3 px) on the card against
+     the CPU; K1 and K2's stereo template on the rectified session's inputs
+     against their plain versions; then per session the frame and
+     keyframe-frame ms by stage, the plain KB8 pose BA's time and CUDA
+     kernels per call, and K1's launches by call site.
+Phases 6-10 print one JSON line with each kernel's bound and launches by
 path and call site; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -182,10 +202,11 @@ def events_device_ms(fn, runs=20):
 
 
 def device_kernel_ms(fn, name, runs=20):
-    """(ms, how): the mean device time per call of the kernels whose name
-    contains `name`, from torch.profiler ("profiler"); where three profiler
-    windows see no device time for them, the device time of the whole call
-    from CUDA events instead ("events", see events_device_ms)."""
+    """(ms, how): the mean device time per call of the kernel whose name
+    contains `name` (one launch per call), from torch.profiler
+    ("profiler"); where three profiler windows hold fewer than `runs` of
+    its device events, the device time of the whole call from CUDA events
+    instead ("events", see events_device_ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -195,11 +216,15 @@ def device_kernel_ms(fn, name, runs=20):
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages() if name in ev.key
+               and (getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0))]
         us = sum((getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0))
-                 for ev in prof.key_averages() if name in ev.key)
-        if us > 0:
-            return us / 1000.0 / runs, "profiler"
-        print(f"[timing] profiler window {attempt + 1} saw no device time for {name}")
+                 for ev in evs)
+        n = sum(ev.count for ev in evs)
+        if n >= runs:
+            return us / 1000.0 / n, "profiler"
+        print(f"[timing] profiler window {attempt + 1} saw {n} of {runs} device events "
+              f"of {name}")
     ms = events_device_ms(fn, runs)
     print(f"[timing] {name}: device time from CUDA events instead: {ms:.5f} ms per call")
     return ms, "events"
@@ -1077,11 +1102,13 @@ def keyframe_stack(s, pkg, cfg, parent, sensor="mono"):
 
 
 def keyframe_stack_vs_cpu(s_in, pkg, cfg, parent, sensor, gpu, tag, min_agree=0.99,
-                          pose_tol=1e-3):
-    """One keyframe's mapping stack on the card (timed and profiled) and on
-    the CPU plain path from the same input state: the same keyframe row, BA
-    window and n_fixed, landmarks within 1%, each row's bindings equal on at
-    least `min_agree` of its features, keyframe poses within `pose_tol`."""
+                          pose_tol=1e-3, profiled=True):
+    """One keyframe's mapping stack on the card (timed, and profiled unless
+    `profiled` is False) and on the CPU plain path from the same input
+    state: the same keyframe row, BA window and n_fixed, landmarks within
+    1%, each row's bindings equal on at least `min_agree` of its features,
+    keyframe poses within `pose_tol`."""
+    import contextlib
     import dataclasses
 
     import torch
@@ -1089,18 +1116,21 @@ def keyframe_stack_vs_cpu(s_in, pkg, cfg, parent, sensor, gpu, tag, min_agree=0.
 
     torch.cuda.synchronize()
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    window = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext())
+    with window as prof:
         ev0.record()
         pre_g, s_g = keyframe_stack(s_in, pkg, cfg, parent, sensor)
         ev1.record()
         torch.cuda.synchronize()
     kf_wall = ev0.elapsed_time(ev1)
-    busy_ms, n_kernels, by_name = device_busy(prof)
+    busy_ms, n_kernels, by_name = device_busy(prof) if profiled else (None, None, [])
     kf_busy = None if busy_ms is None else busy_ms / kf_wall
     top = sorted(by_name, reverse=True)[:6]
-    print(f"[{tag} timing] {gpu}: one keyframe's mapping stack {kf_wall:.1f} ms under the "
-          f"profiler, {n_kernels} CUDA kernels, device busy {pct(kf_busy)}; top: " + "; ".join(
-              f"{k[:50]} x{c} {us / 1000.0:.2f} ms" for us, c, k in top))
+    print(f"[{tag} timing] {gpu}: one keyframe's mapping stack {kf_wall:.1f} ms"
+          + (f" under the profiler, {n_kernels} CUDA kernels, device busy {pct(kf_busy)}; top: "
+             + "; ".join(f"{k[:50]} x{c} {us / 1000.0:.2f} ms" for us, c, k in top)
+             if profiled else " (not profiled)"))
     cfg_cpu = dataclasses.replace(cfg, K=cfg.K.cpu())
     t0 = time.perf_counter()
     pre_c, s_c = keyframe_stack(_on(s_in, "cpu"), _on(pkg, "cpu"), cfg_cpu, parent, sensor)
@@ -1677,6 +1707,435 @@ def phase_depth(dev, gpu):
     return out
 
 
+# ---------------------------------------------------------------- phase 10
+# (name, frames, PlaneScene seed): the fisheye rig of tests/test_slam_fisheye.py
+# (KB8 K8, 512x384, 0.3 m baseline) and the legacy EuRoC stereo file
+# (752x480, raw images through the cam0 rad-tan distortion, 0.11 m
+# baseline) on phase 9's stereo scene
+FISHEYE_K8 = (260.0, 260.0, 256.0, 192.0, 0.01, -0.005, 0.002, -0.001)
+FISHEYE_WH, FISHEYE_BASE = (512, 384), 0.3
+SETTINGS_SESSIONS = (("fisheye-stereo-full", 20, 5), ("euroc-rectified-full", 20, 2))
+
+
+def settings_frames(name, n, seed):
+    """(left, right) pairs along the orbit, rendered in numpy on a thread
+    pool: KB8 images of the fisheye rig, or raw images through the EuRoC
+    camera's rad-tan distortion."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from orb_slam3_tpu_torch import entry
+
+    planes = entry.plane_scene(seed)
+    R, t = entry.orbit_trajectory(n)
+    if name.startswith("fisheye"):
+        base, rays = FISHEYE_BASE, entry.kb8_rays(FISHEYE_K8, FISHEYE_WH)
+    else:
+        base, rays = entry.EUROC_BASELINE, entry.radtan_rays(entry.EUROC_K, entry.EUROC_D, entry.FULL_WH)
+    pair = lambda i: (entry.render_rays(planes, rays, R[i], t[i]),  # noqa: E731
+                      entry.render_rays(planes, rays, R[i], t[i] - np.array([base, 0.0, 0.0])))
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(pair, range(n))), R, t
+
+
+def settings_text(name):
+    from orb_slam3_tpu_torch import entry
+
+    if name.startswith("fisheye"):
+        return entry.kb8_stereo_settings(FISHEYE_K8, FISHEYE_WH, FISHEYE_BASE, 1000, 8, 20.0)
+    return entry.euroc_legacy_settings()
+
+
+def run_settings_session(dev, name, n, seed, tmpdir):
+    """One phase-10 session through entry.slam(settings_path=...) ->
+    System(settings_path, "stereo").track_stereo, the launch counters zeroed
+    just before it, every stage synchronised at its end. Records each
+    frame's time and launches, K1's launches at the right-camera call site
+    and that site's inputs, the inputs of the last match_stereo_fisheye,
+    pose_optimize_two_cam and KB8 pose BA calls, the last tracking K1 / K2
+    calls of the pinhole session and the last keyframe's mapping inputs."""
+    import contextlib
+    import os
+
+    import torch
+
+    from orb_slam3_tpu_torch import entry
+    from orb_slam3_tpu_torch.frontend import camera as cam
+    from orb_slam3_tpu_torch.frontend import match_kernel as mk
+    from orb_slam3_tpu_torch.frontend import stereo
+    from orb_slam3_tpu_torch.mapping import fuse, pipeline
+    from orb_slam3_tpu_torch.tracking import pose_kernel as pk
+    from orb_slam3_tpu_torch.tracking import track
+    from orb_slam3_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    t0 = time.perf_counter()
+    frames, R_gt, t_gt = settings_frames(name, n, seed)
+    render_s = time.perf_counter() - t0
+    path = os.path.join(tmpdir, f"{name}.yaml")
+    with open(path, "w") as f:
+        f.write(settings_text(name))
+    rec = {"frames": [], "pre": None, "rfeat": None, "k1_right": None, "k1_track": None,
+           "k2_stereo": None, "msf": None, "two_cam": None, "kb8_ba": None,
+           "sites": {"K1 right": 0, "K1 fuse": 0}}
+    o = dict(k1=mk.search_by_projection_kernel, k2=pk.pose_ba, tfv=track.track_frame_visual,
+             mlm=track.match_local_map, msf=stereo.match_stereo_fisheye,
+             two=track.pose_optimize_two_cam, pos=track.pose_optimize_stereo,
+             fuse=fuse.fuse_into_keyframe, pre=pipeline.run_pre_stage, stage=GLOBAL_TIMER.stage)
+    site = [None]
+
+    def k1_rec(*a, **kw):
+        if site[0] == "right":
+            rec["k1_right"] = (a, kw)
+        elif site[0] is None:
+            rec["k1_track"] = (a, kw)
+        return o["k1"](*a, **kw)
+
+    def k2_rec(*a, **kw):
+        if kw.get("ur") is not None:
+            rec["k2_stereo"] = (a, kw)
+        return o["k2"](*a, **kw)
+
+    def tfv_rec(*a, **kw):
+        rec["rfeat"] = kw.get("rfeat_xy")
+        return o["tfv"](*a, **kw)
+
+    def mlm_rec(*a, **kw):
+        right = rec["rfeat"] is not None and a[10] is rec["rfeat"]
+        site[0], n0 = ("right" if right else None), mk.launches
+        try:
+            return o["mlm"](*a, **kw)
+        finally:
+            if right:
+                rec["sites"]["K1 right"] += mk.launches - n0
+            site[0] = None
+
+    def msf_rec(*a, **kw):
+        rec["msf"] = (a, kw)
+        return o["msf"](*a, **kw)
+
+    def two_rec(*a, **kw):
+        rec["two_cam"] = (a, kw)
+        return o["two"](*a, **kw)
+
+    def pos_rec(kind, *a, **kw):
+        if kind == cam.KB8:
+            rec["kb8_ba"] = (a, kw)
+        return o["pos"](kind, *a, **kw)
+
+    def fuse_rec(*a, **kw):
+        site[0], n0 = "fuse", mk.launches
+        try:
+            return o["fuse"](*a, **kw)
+        finally:
+            rec["sites"]["K1 fuse"] += mk.launches - n0
+            site[0] = None
+
+    def pre_rec(s, pkg, cfg_, base, parent, sf):
+        rec["pre"] = (s, pkg, parent, cfg_)
+        return o["pre"](s, pkg, cfg_, base, parent, sf)
+
+    def frame_timer(_name):
+        @contextlib.contextmanager
+        def part():
+            n_kf = len(GLOBAL_TIMER.samples["track.kf_insert_sync"])
+            k = (mk.launches, pk.launches, pk.stereo_launches, rec["sites"]["K1 right"])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            rec["frames"].append(dict(
+                ms=(time.perf_counter() - t1) * 1e3,
+                kf=len(GLOBAL_TIMER.samples["track.kf_insert_sync"]) > n_kf,
+                k1=mk.launches - k[0], k2=pk.launches - k[1],
+                k2_stereo=pk.stereo_launches - k[2], k1_right=rec["sites"]["K1 right"] - k[3]))
+        return part()
+
+    GLOBAL_TIMER.reset()
+    mk.search_by_projection_kernel, pk.pose_ba = k1_rec, k2_rec
+    track.track_frame_visual, track.match_local_map = tfv_rec, mlm_rec
+    stereo.match_stereo_fisheye, track.pose_optimize_two_cam = msf_rec, two_rec
+    track.pose_optimize_stereo = pos_rec
+    fuse.fuse_into_keyframe, pipeline.run_pre_stage = fuse_rec, pre_rec
+    GLOBAL_TIMER.stage = lambda stage_name: GLOBAL_TIMER.stage_sync(stage_name, dev)
+    try:
+        mk.launches = pk.launches = pk.stereo_launches = 0
+        t0 = time.perf_counter()
+        system = entry.slam(frames, settings_path=path, sensor="stereo", device=dev,
+                            timer=frame_timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K1": mk.launches, "K2": pk.launches, "K2_stereo": pk.stereo_launches,
+                    **rec["sites"]}
+    finally:
+        mk.search_by_projection_kernel, pk.pose_ba = o["k1"], o["k2"]
+        track.track_frame_visual, track.match_local_map = o["tfv"], o["mlm"]
+        stereo.match_stereo_fisheye, track.pose_optimize_two_cam = o["msf"], o["two"]
+        track.pose_optimize_stereo = o["pos"]
+        fuse.fuse_into_keyframe, pipeline.run_pre_stage = o["fuse"], o["pre"]
+        GLOBAL_TIMER.stage = o["stage"]
+    cfg = system.tracker.cfg
+    print(f"[settings {name}] {n} frames rendered in {render_s:.1f} s; main path "
+          f"(entry.slam(settings_path) -> System.track_stereo, kind {cfg.kind}, "
+          f"stereo_fisheye {cfg.stereo_fisheye}, bf {cfg.bf:.4g}, th_depth {cfg.th_depth:g}, "
+          f"rectifier {system.rectifier is not None}): {wall:.2f} s; launches {launches}")
+    return dict(system=system, cfg=cfg, frames=frames, R_gt=R_gt, t_gt=t_gt, rec=rec,
+                samples={k: list(v) for k, v in GLOBAL_TIMER.samples.items()},
+                launches=launches, wall_s=wall)
+
+
+def settings_gates(name, run):
+    """test_slam_fisheye.py's gates (>= 70% tracked, unscaled ATE < 0.05) or
+    test_slam_rgbd_stereo.py::test_stereo_end_to_end's (>= 80%, < 0.15), and
+    the Atlas invariants. Returns (failed, summary)."""
+    from orb_slam3_tpu_torch.api import evaluate
+    from orb_slam3_tpu_torch.atlas import invariants
+
+    tr = run["system"].tracker
+    ts, R, t, ok = tr.poses()
+    n, s = len(ok), tr.map
+    est = evaluate.camera_centers(R[ok], t[ok])
+    gt = evaluate.camera_centers(run["R_gt"][ok], run["t_gt"][ok])
+    rmse, _, _ = evaluate.ate_rmse(ts[ok], est, ts[ok], gt, with_scale=False)
+    summary = dict(state=tr.state, tracked=int(ok.sum()), frames=n, ate=rmse,
+                   n_kf=int(s.n_kf), landmarks=int(s.lm_valid.sum()),
+                   violations=invariants.check_all(s))
+    frac, gate = (0.7, 0.05) if name.startswith("fisheye") else (0.8, 0.15)
+    conds = [(ok.sum() >= frac * n, f"only {int(ok.sum())} of {n} frames tracked"),
+             (rmse < gate, f"unscaled ATE {rmse:.4f} (gate {gate})"),
+             (not summary["violations"], f"invariants: {summary['violations'][:3]}")]
+    failed = [f"{name}: {msg}" for cond, msg in conds if not cond]
+    for msg in failed:
+        print(f"[settings] GATE FAILED: {msg}")
+    print(f"[settings {name}] " + ", ".join(f"{k} {v}" for k, v in summary.items()
+                                          if k != "violations")
+          + f", invariant violations {len(summary['violations'])}")
+    return failed, summary
+
+
+def _cpu(a):
+    import torch
+
+    return a.cpu() if torch.is_tensor(a) else a
+
+
+def kb8_checks(run, gpu):
+    """The fisheye session's card-vs-CPU checks on its own inputs: K1 at the
+    right-camera call site exactly, match_stereo_fisheye (good equal on >=
+    99% of rows, depth within 1e-4 relative where both are good), the KB8
+    pose_optimize_two_cam (R within 1e-5, t within 1e-4), and the KB8 pose
+    BA's time and CUDA kernels per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from orb_slam3_tpu_torch.frontend import camera as cam
+    from orb_slam3_tpu_torch.frontend import match_kernel as mk
+    from orb_slam3_tpu_torch.frontend import stereo
+    from orb_slam3_tpu_torch.tracking import track
+
+    rec, out = run["rec"], {}
+    a1, kw1 = rec["k1_right"]
+    err_k1, n_ok = compare_k1(mk.search_by_projection_kernel(*a1, **kw1),
+                              mk.search_by_projection_plain(*a1, **kw1))
+    print(f"[fisheye] K1 at the right-camera call site == plain (N={a1[0].shape[0]}, "
+          f"M={a1[4].shape[0]}, {int(a1[3].sum())} visible, {n_ok} matched)")
+    (a, kw) = rec["msf"]
+    d_g, g_g = (x.cpu() for x in stereo.match_stereo_fisheye(*a, **kw))
+    d_c, g_c = stereo.match_stereo_fisheye(*[_cpu(x) for x in a], **kw)
+    agree = float((g_g == g_c).float().mean())
+    both = g_g & g_c
+    rel = float(((d_g[both] - d_c[both]).abs() / d_c[both]).max()) if bool(both.any()) else 0.0
+    check(agree >= 0.99 and rel <= 1e-4 and int(g_c.sum()) >= 100,
+          f"match_stereo_fisheye card vs CPU: good agree {agree:.4f}, depth rel {rel:.3g}, "
+          f"{int(g_c.sum())} good")
+    (a, kw) = rec["two_cam"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    og = [x.cpu() for x in track.pose_optimize_two_cam(*a, **kw)]
+    two_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    oc = track.pose_optimize_two_cam(*[_cpu(x) for x in a], **kw)
+    two_cpu_s = time.perf_counter() - t0
+    dR, dt = float((og[0] - oc[0]).abs().max()), float((og[1] - oc[1]).abs().max())
+    m_agree = min(float((og[2] == oc[2]).float().mean()), float((og[3] == oc[3]).float().mean()))
+    check(dR <= 1e-5 and dt <= 1e-4 and m_agree >= 0.99,
+          f"KB8 pose_optimize_two_cam card vs CPU: R {dR:.3g}, t {dt:.3g}, masks {m_agree:.4f}")
+    print(f"[fisheye] card vs CPU: match_stereo_fisheye good agree {100 * agree:.2f}% "
+          f"({int(g_c.sum())} good of {g_c.shape[0]}), depth within {rel:.3g} relative; "
+          f"pose_optimize_two_cam R {dR:.3g}, t {dt:.3g}, inliers {int(og[4])} vs {int(oc[4])}")
+    # the plain KB8 pose BA: one call timed (the session has warmed it up),
+    # one call profiled for its CUDA kernels (device activity only: the
+    # host-side events of ~10k launches take seconds to gather); the
+    # two-camera BA was timed by its card-vs-CPU call above
+    (a, kw) = rec["kb8_ba"]
+    fn = lambda: track.pose_optimize_stereo(cam.KB8, *a, **kw)  # noqa: E731
+    ba_ms = time_ms(fn, runs=1, warmup=0)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_ms, n_kernels, _ = device_busy(prof)
+    prof_s = time.perf_counter() - t0
+    msf_ms = time_ms(lambda: stereo.match_stereo_fisheye(*rec["msf"][0]), runs=10)
+    print(f"[fisheye] seconds: the two-camera BA on the CPU {two_cpu_s:.1f}, the profiled KB8 "
+          f"pose BA call {prof_s:.1f}")
+    out.update(err_k1=err_k1, msf_agree=agree, msf_rel=rel, two_cam_dR=dR, two_cam_dt=dt,
+               kb8_pose_ba_ms=ba_ms, kb8_pose_ba_kernels=n_kernels,
+               kb8_pose_ba_busy_ms=busy_ms, two_cam_ms=two_ms, match_stereo_fisheye_ms=msf_ms,
+               kb8_pose_ba_rows=int(a[4].shape[0]), kb8_pose_ba_valid=int(a[8].sum()))
+    # a = (K, bf, R0, t0, uv, ur, Xw, inv_sigma2, valid)
+    print(f"[fisheye timing] {gpu}: plain KB8 pose_optimize_stereo (N={a[4].shape[0]}, "
+          f"{int(a[8].sum())} valid) {ba_ms:.2f} ms per call, {n_kernels} CUDA kernels per call"
+          f" (device busy {busy_ms} ms); pose_optimize_two_cam {two_ms:.2f} ms; "
+          f"match_stereo_fisheye {msf_ms:.3f} ms")
+    return out
+
+
+def rectified_checks(run, dev, gpu):
+    """The EuRoC session's card-vs-CPU checks: the StereoRectifier on one raw
+    pair (max |diff| <= 1e-3), the rad-tan keypoint path on one raw frame
+    through Tracker._extract with the raw camera's dist_coeffs (>= 97% of
+    keypoints the same, undistorted xy within 1e-3 px where they are), and
+    K1 / K2 at the session's last tracking calls against their plain
+    versions."""
+    import numpy as np
+    import torch
+
+    from orb_slam3_tpu_torch import entry
+    from orb_slam3_tpu_torch.frontend import match_kernel as mk
+    from orb_slam3_tpu_torch.frontend import orb, rectify
+    from orb_slam3_tpu_torch.tracking import pose_kernel as pk
+    from orb_slam3_tpu_torch.tracking import tracker
+
+    raw_l, raw_r = run["frames"][-1]
+    rg = run["system"].rectifier
+    maps = (rg.map_l.cpu(), rg.map_r.cpu())
+    out_g = [x.cpu() for x in rg(raw_l, raw_r)]
+    out_c = [rectify.remap_bilinear(torch.from_numpy(im), m) for im, m in zip((raw_l, raw_r),
+                                                                              maps)]
+    d_rect = max(float((g - c).abs().max()) for g, c in zip(out_g, out_c))
+    check(d_rect <= 1e-3, f"StereoRectifier card vs CPU: max |diff| {d_rect:.3g}")
+    rect_ms = time_ms(lambda: rg(raw_l, raw_r), runs=20)
+    # the rad-tan keypoint path: a pinhole camera with the raw distortion
+    cfg = dict(K=np.asarray(list(entry.EUROC_K) + [0.0] * 4, np.float32), img_wh=entry.FULL_WH,
+               dist_coeffs=np.asarray(entry.EUROC_D, np.float32), kmax=8, lmax=1024)
+    tg = tracker.Tracker(tracker.TrackerConfig(**cfg), device=dev)
+    tc = tracker.Tracker(tracker.TrackerConfig(**cfg), device="cpu")
+    img = torch.from_numpy(raw_l)
+    fg, fc = tg._extract(img.to(dev)), tc._extract(img)
+    rawg, rawc = orb.extract(img.to(dev), tg.cfg.orb), orb.extract(img, tc.cfg.orb)
+    same = (rawg.valid.cpu() & rawc.valid & (rawg.xy.cpu() == rawc.xy).all(dim=1)
+            & (rawg.octave.cpu() == rawc.octave))
+    frac = float(same.sum()) / max(int(rawc.valid.sum()), 1)
+    dxy = float((fg.xy.cpu()[same] - fc.xy[same]).abs().max())
+    moved = float((fc.xy[same] - rawc.xy[same]).abs().max())
+    check(frac >= 0.97 and dxy <= 1e-3 and moved > 1.0,
+          f"rad-tan keypoints card vs CPU: {100 * frac:.2f}% the same, undistorted xy within "
+          f"{dxy:.3g} px, moved by up to {moved:.3g} px")
+    a1, kw1 = run["rec"]["k1_track"]
+    err_k1, n_ok = compare_k1(mk.search_by_projection_kernel(*a1, **kw1),
+                              mk.search_by_projection_plain(*a1, **kw1))
+    a2, kw2 = run["rec"]["k2_stereo"]
+    err_k2 = compare_k2(pk.pose_ba(*a2, **kw2), pk.pose_ba_plain(*a2, **kw2),
+                        "stereo template in the rectified session")
+    print(f"[euroc] card vs CPU: StereoRectifier max |diff| {d_rect:.3g}; rad-tan keypoints "
+          f"{100 * frac:.2f}% the same, undistorted within {dxy:.3g} px (moved up to "
+          f"{moved:.1f} px); K1 == plain at the last tracking call (N={a1[0].shape[0]}, "
+          f"{n_ok} matched); K2 stereo vs plain (N={a2[3].shape[1]}, {int(a2[6].sum())} valid): "
+          f"max |err| {err_k2:.3g}")
+    print(f"[euroc timing] {gpu}: StereoRectifier alone {rect_ms:.3f} ms per pair")
+    return dict(rect_diff=d_rect, radtan_same=frac, radtan_dxy=dxy, err_k1=err_k1,
+                err_k2=err_k2, rectify_ms=rect_ms)
+
+
+def phase_settings(dev, gpu):
+    """Phase 10: the fisheye-stereo rig and the rectified EuRoC rig at full
+    width through System(settings_path), their gates, the card-vs-CPU checks
+    on their inputs, one fisheye keyframe's mapping stack against the CPU
+    plain path, and the timings."""
+    import statistics
+    import tempfile
+
+    med = lambda v: statistics.median(v) if v else None  # noqa: E731
+    runs, failed, out = {}, [], {"sessions": {}}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        for name, n, seed in SETTINGS_SESSIONS:
+            t_s = time.perf_counter()
+            run = runs[name] = run_settings_session(dev, name, n, seed, tmpdir)
+            f, summary = settings_gates(name, run)
+            failed += f
+            frames = run["rec"]["frames"]
+            tracked = frames[1:]
+            fisheye = name.startswith("fisheye")
+            if fisheye:
+                check(all(fr["k1_right"] >= 1 for fr in tracked),
+                      f"{name}: a tracked frame made no right-camera K1 launch: "
+                      f"{[fr['k1_right'] for fr in tracked]}")
+                check(run["launches"]["K2"] == 0, f"{name}: K2 launched for the KB8 camera")
+            else:
+                check(all(fr["k2_stereo"] >= 1 for fr in tracked),
+                      f"{name}: a tracked frame launched no stereo K2")
+            s = run["samples"]
+            plain = [fr["ms"] for fr in tracked if not fr["kf"]]
+            kf = [fr["ms"] for fr in tracked if fr["kf"]]
+            timing = dict(
+                frame_ms=med(plain), keyframe_frame_ms=med(kf), keyframe_frames=len(kf),
+                stages={k: med(s.get(k, [])) for k in (
+                    "orb_extraction", "track.rectify", "track.stereo_depth", "track.fused_step",
+                    "map.pre", "map.local_ba", "map.culling")},
+                k1_per_frame=med([fr["k1"] for fr in tracked if not fr["kf"]]),
+                k1_right_per_frame=med([fr["k1_right"] for fr in tracked if not fr["kf"]]),
+                k2_per_frame=med([fr["k2"] for fr in tracked if not fr["kf"]]))
+            print(f"[settings timing] {gpu}: {name}: frame without a keyframe median "
+                  f"{timing['frame_ms']} ms over {len(plain)}; keyframe frame median "
+                  f"{timing['keyframe_frame_ms']} ms over {len(kf)}; synchronised stage medians "
+                  f"{timing['stages']}; launches per frame without a keyframe: K1 "
+                  f"{timing['k1_per_frame']} (right camera {timing['k1_right_per_frame']}), K2 "
+                  f"{timing['k2_per_frame']}; K1 by call site {run['launches']}")
+            out["sessions"][name] = dict(summary, launches=run["launches"], wall_s=run["wall_s"],
+                                         **timing)
+        print(f"[settings {name}] session with its gates: {time.perf_counter() - t_s:.1f} s")
+    fe, eu = runs["fisheye-stereo-full"], runs["euroc-rectified-full"]
+    t0 = time.perf_counter()
+    kb8 = kb8_checks(fe, gpu)
+    t1 = time.perf_counter()
+    s_in, pkg, parent, cfg = fe["rec"]["pre"]
+    kf_stack = keyframe_stack_vs_cpu(s_in, pkg, cfg, parent, "stereo", gpu, "fisheye",
+                                     profiled=False)
+    t2 = time.perf_counter()
+    rect = rectified_checks(eu, dev, gpu)
+    print(f"[settings] check seconds: fisheye card vs CPU and KB8 timing {t1 - t0:.1f}, "
+          f"keyframe stack {t2 - t1:.1f}, rectified checks {time.perf_counter() - t2:.1f}")
+    # K1 at the right-camera call site and K2 on the rectified session's
+    # inputs: time, device time, plain time and bound
+    from orb_slam3_tpu_torch.frontend import match_kernel as mk
+    from orb_slam3_tpu_torch.tracking import pose_kernel as pk
+
+    a1, kw1 = fe["rec"]["k1_right"]
+    a2, kw2 = eu["rec"]["k2_stereo"]
+    rows = {}
+    for kname, fn, plain, bound, N, prof_name in (
+            ("K1_right", lambda: mk.search_by_projection_kernel(*a1, **kw1),
+             lambda: mk.search_by_projection_plain(*a1, **kw1), k1_bound(a1), a1[0].shape[0],
+             "match_kernel"),
+            ("K2_rectified", lambda: pk.pose_ba(*a2, **kw2), lambda: pk.pose_ba_plain(*a2, **kw2),
+             k2_bound(a2, kw2), a2[3].shape[1], "pose_kernel")):
+        b_ms, b_by = bound_ms(*bound)
+        dev_ms, dev_by = device_kernel_ms(fn, prof_name)
+        rows[kname] = dict(N=int(N), ms=time_ms(fn, runs=20), device_ms=dev_ms,
+                           device_ms_by=dev_by, plain_ms=time_ms(plain, runs=3, warmup=1),
+                           bound_ms=b_ms, bound_by=b_by)
+        print(f"[settings timing] {gpu}: {kname} (N={N}): {rows[kname]['ms']:.4f} ms per call, "
+              f"device {dev_ms:.5f} ms, plain {rows[kname]['plain_ms']:.3f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by})")
+    launches = {k: sum(r["launches"].get(k, 0) for r in runs.values())
+                for k in ("K1", "K2", "K2_stereo", "K1 right", "K1 fuse")}
+    out.update(failed=failed, launches=launches, kb8=kb8, rectified=rect,
+               keyframe_stack=kf_stack, call_sites=rows,
+               err={"K1": max(kb8["err_k1"], rect["err_k1"]), "K2": rect["err_k2"]})
+    return out
+
+
 def main():
     import torch
 
@@ -1714,37 +2173,49 @@ def main():
     slam = phase_slam(dev, gpu)
     print(f"[phase] phases 1-8 took {time.perf_counter() - t_start:.1f} s")
     depth = phase_depth(dev, gpu)
-    # each kernel's row: its launches on the four main paths (and by call
-    # site), the bootstrap's numbers at N = lmax, K1's at the fuse and the
-    # depth sessions' call sites
+    print(f"[phase] phases 1-9 took {time.perf_counter() - t_start:.1f} s")
+    t10 = time.perf_counter()
+    settings = phase_settings(dev, gpu)
+    print(f"[phase] phase 10 took {time.perf_counter() - t10:.1f} s")
+    # each kernel's row: its launches on the five main paths (and by call
+    # site), the bootstrap's numbers at N = lmax, K1's at the fuse, the
+    # depth sessions' and the settings sessions' call sites
     for row in report["kernels"]:
         name = row["name"]
         b = boot["kernels"][name]
         row["launches_by_path"] = {"track-full": row["launches"],
                                    "bootstrap": boot["launches"][name],
                                    "slam": slam["launches"][name],
-                                   "slam-depth": depth["launches"][name]}
+                                   "slam-depth": depth["launches"][name],
+                                   "slam-settings": settings["launches"][name]}
         row["launches"] = sum(row["launches_by_path"].values())
         row["max_abs_err"] = row["max_err"] = max(row["max_abs_err"], boot["err"][name],
-                                                  depth["err"][name])
+                                                  depth["err"][name], settings["err"][name])
         row["bootstrap"] = b
     k1, k2 = report["kernels"]
-    fuse_k1 = slam["fuse_k1"] + depth["launches"]["K1 fuse"]
+    fuse_k1 = slam["fuse_k1"] + depth["launches"]["K1 fuse"] + settings["launches"]["K1 fuse"]
+    right_k1 = settings["launches"]["K1 right"]
     k1["launches_by_site"] = {
-        "track (match_local_map)": k1["launches"] - fuse_k1 - depth["launches"]["K1 vo"],
+        "track (match_local_map)": k1["launches"] - fuse_k1 - depth["launches"]["K1 vo"]
+        - right_k1,
         "fuse (fuse_into_keyframe)": fuse_k1,
-        "localization VO points": depth["launches"]["K1 vo"]}
+        "localization VO points": depth["launches"]["K1 vo"],
+        "right camera (fisheye two-camera stage)": right_k1}
     k1["fuse"] = slam["k1_fuse"]
     k1["vo"] = depth["call_sites"]["K1_vo"]
-    k2["launches_by_site"] = {"stereo template (depth tracking)": depth["launches"]["K2_stereo"],
+    k1["right_camera"] = settings["call_sites"]["K1_right"]
+    k2["launches_by_site"] = {"stereo template (depth tracking)": depth["launches"]["K2_stereo"]
+                              + settings["launches"]["K2_stereo"],
                               "mono over map + VO rows": depth["launches"]["K2 loc"]}
     k2["stereo"] = depth["call_sites"]["K2_stereo"]
     k2["localization"] = depth["call_sites"]["K2_loc"]
+    k2["rectified"] = settings["call_sites"]["K2_rectified"]
     report["bootstrap"] = {k: v for k, v in boot.items() if k != "kernels"}
     report["slam"] = {k: v for k, v in slam.items() if k != "k1_fuse"}
     report["slam_depth"] = {k: v for k, v in depth.items() if k != "call_sites"}
+    report["slam_settings"] = {k: v for k, v in settings.items() if k != "call_sites"}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    failed = boot["failed"] + slam["failed"] + depth["failed"]
+    failed = boot["failed"] + slam["failed"] + depth["failed"] + settings["failed"]
     if failed:
         print(json.dumps(report, default=str))
         raise SmokeFailure(f"gates failed: {failed}")

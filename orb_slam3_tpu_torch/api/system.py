@@ -1,20 +1,29 @@
 """The public session façade (port of orb_slam3_tpu/api/system.py for the
-pinhole visual sensors).
+visual sensors).
 
 The reference's top-level API (`System.h:105-198`, `System.cc`): construct
-with a config, feed frames with `track_monocular`, `track_stereo` or
-`track_rgbd` as the config's sensor asks, switch localization-only mode on
-and off, query the tracking state, reset, export trajectories. Each entry
-point the JAX façade has beyond these raises NotImplementedError naming the
-slice (ROADMAP Queue 1 item) that brings it.
+from a reference-format settings file and a sensor, or from a config; feed
+frames with `track_monocular`, `track_stereo` or `track_rgbd` as the
+sensor asks (a legacy stereo file's rectification blocks remap both images
+first, and `Camera.newWidth/newHeight` resizes every image); switch
+localization-only mode on and off, query the tracking state, reset, export
+trajectories. Each entry point the JAX façade has beyond these raises
+NotImplementedError naming the slice (ROADMAP Queue 1 item) that brings it.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import device as device_mod
+from ..frontend.rectify import StereoRectifier
 from ..tracking import tracker as trk
 from ..utils.timing import GLOBAL_TIMER
+from . import settings as settings_mod
 from . import trajectory
 
 _INERTIAL = "inertial slice (ROADMAP Queue 1 item 13)"
@@ -34,15 +43,29 @@ class System:
     def __init__(self, settings_path: Optional[str] = None, sensor: str = "mono",
                  vocabulary=None, config: Optional[trk.TrackerConfig] = None,
                  atlas_path: Optional[str] = None, device=None):
-        """config: a TrackerConfig, whose `sensor` ("mono", "stereo" or
-        "rgbd") the session runs; `sensor`, when not the default, must name
-        the same one. The camera tensor's device is the session's, or
-        `device` (default CUDA) when the camera is not a tensor. Reading a
-        reference-format settings file waits for `api/settings.py`."""
-        if settings_path is not None:
-            _not_ported("reading a settings file (api/settings.py)", _API)
+        """settings_path: a reference-format YAML read for `sensor` ("mono",
+        "stereo" or "rgbd"; the System ctor reads the settings file,
+        `System.cc:70-85`), on `device` (default CUDA). Or config: a
+        TrackerConfig, whose `sensor` the session runs (`sensor`, when not
+        the default, must name the same one); the camera tensor's device is
+        the session's, or `device` when the camera is not a tensor. A
+        config, when given, is used and the settings file is not read, as
+        in the JAX façade."""
+        self.rectifier = None
+        self._resize_hw = None
         if config is None:
-            raise ValueError("need config (settings files are not ported yet)")
+            if settings_path is None:
+                raise ValueError("need settings_path or config")
+            dev = device_mod.resolve(device)
+            s = settings_mod.load_settings(settings_path, sensor)
+            config = settings_mod.to_tracker_config(s, device=dev)
+            if s.rect_left is not None and sensor.startswith("stereo"):
+                # legacy EuRoC-style rectification: remap both images before
+                # tracking (System::TrackStereo, System.cc:253-265)
+                self.rectifier = StereoRectifier(s.rect_left, s.rect_right, s.width,
+                                                 s.height, device=dev)
+            if s.resize_wh is not None:
+                self._resize_hw = (s.resize_wh[1], s.resize_wh[0])
         if "imu" in sensor + config.sensor:
             _not_ported(f"sensor {sensor!r} / {config.sensor!r}", _INERTIAL)
         if sensor != self.MONOCULAR and sensor != config.sensor:
@@ -58,6 +81,17 @@ class System:
         if self.tracker.base_sensor != sensor:
             raise ValueError(f"{call} on a {self.tracker.base_sensor!r} session")
 
+    def _resize(self, img):
+        """Camera.newWidth/newHeight: a bilinear resize with half-pixel
+        centres and no antialiasing (`jax.image.resize(..., "bilinear",
+        antialias=False)` in the JAX façade)."""
+        if self._resize_hw is None:
+            return img
+        t = torch.as_tensor(np.asarray(img) if not torch.is_tensor(img) else img,
+                            dtype=torch.float32, device=self.tracker.device)
+        return F.interpolate(t[None, None], size=self._resize_hw, mode="bilinear",
+                             align_corners=False, antialias=False)[0, 0]
+
     def _track(self, img, timestamp, **inputs):
         with GLOBAL_TIMER.stage("track.process_total"):
             self.tracker.process(img, timestamp, **inputs)
@@ -71,16 +105,19 @@ class System:
         if imu is not None:
             _not_ported("IMU measurements", _INERTIAL)
         self._expect(self.MONOCULAR, "track_monocular")
-        return self._track(img, timestamp)
+        return self._track(self._resize(img), timestamp)
 
     def track_stereo(self, img_left, img_right, timestamp: float, imu=None):
-        """System::TrackStereo (`System.cc:244`) on a rectified pair; returns
-        as track_monocular does. Rectifying raw images from settings comes
-        with api/settings.py."""
+        """System::TrackStereo (`System.cc:244`); returns as track_monocular
+        does. A settings file with rectification blocks remaps the raw pair
+        first (`System.cc:253-265`)."""
         if imu is not None:
             _not_ported("IMU measurements", _INERTIAL)
         self._expect(self.STEREO, "track_stereo")
-        return self._track(img_left, timestamp, img_right=img_right)
+        if self.rectifier is not None:
+            with GLOBAL_TIMER.stage("track.rectify"):
+                img_left, img_right = self.rectifier(img_left, img_right)
+        return self._track(self._resize(img_left), timestamp, img_right=self._resize(img_right))
 
     def track_rgbd(self, img, depth, timestamp: float, imu=None):
         """System::TrackRGBD (`System.cc:328`): an image and its registered
@@ -89,7 +126,7 @@ class System:
         if imu is not None:
             _not_ported("IMU measurements", _INERTIAL)
         self._expect(self.RGBD, "track_rgbd")
-        return self._track(img, timestamp, depth_map=depth)
+        return self._track(self._resize(img), timestamp, depth_map=self._resize(depth))
 
     # ------------------------------------------------------------------
     def current_pose(self, settle: bool = True):

@@ -102,11 +102,19 @@ def map_state(s, device=None) -> atlas_state.MapState:
 
 def tracker_config(cfg, device=None):
     """A JAX TrackerConfig -> the port's TrackerConfig: the fields the
-    port reads, the camera as a tensor on `device`."""
+    port reads; the cameras (K, and K_right of a fisheye rig), the rig's
+    extrinsics R_rl / t_rl and the rad-tan dist_coeffs as float32 tensors
+    on `device` (None stays None)."""
     from .tracking import tracker
 
+    dev = device_mod.resolve(device)
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(tracker.TrackerConfig)}
-    fields.update(K=camera(cfg.K, device), orb=orb_config(cfg.orb), img_wh=tuple(cfg.img_wh))
+    fields.update(K=camera(cfg.K, dev), orb=orb_config(cfg.orb), img_wh=tuple(cfg.img_wh))
+    for name in ("R_rl", "t_rl", "dist_coeffs"):
+        if fields[name] is not None:
+            fields[name] = _f32(fields[name], dev)
+    if cfg.K_right is not None:
+        fields["K_right"] = camera(cfg.K_right, dev)
     return tracker.TrackerConfig(**fields)
 
 

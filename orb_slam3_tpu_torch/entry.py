@@ -20,12 +20,22 @@ for a rectified stereo pair or an RGB-D camera: a one-frame initialization
 from measured depth, tracking through K2's stereo rows, depth landmarks at
 each keyframe, and optionally localization-only mode from a given frame.
 
+A session may also start from a reference-format settings file
+(`slam(frames, settings_path=..., sensor=...)`): a KB8 fisheye stereo rig,
+a pinhole camera with rad-tan distortion, or a legacy stereo file whose
+raw images are rectified before tracking.
+
 `blob_frame` and `make_scene` build a self-consistent tracking scene from
 a seed: landmarks lifted from a frame's own keypoints plus random map slots,
 and a perturbed start pose. `plane_sequence` renders the textured-plane
 scene of tests/synthetic_scene.py along its orbit, in numpy;
 `render_stereo` and `render_with_depth` give a rectified pair and an image
-with its depth map.
+with its depth map, `render_rays` the image of a camera whose pixel rays
+are made once by `kb8_rays` (a KB8 fisheye camera, the role of
+tests/synthetic_scene.render_kb8 without OpenCV) or `radtan_rays` (the raw
+pixels of a pinhole camera with rad-tan distortion; `render_radtan`);
+`kb8_stereo_settings` and `euroc_legacy_settings` write the settings files
+of those two rigs.
 """
 
 from __future__ import annotations
@@ -264,26 +274,33 @@ def track_sequence(cfg, init, feats, timer=tracker.no_timer):
     return out
 
 
-def slam(frames, cfg=None, device=None, localize_from=None, timer=tracker.no_timer):
+def slam(frames, cfg=None, device=None, localize_from=None, timer=tracker.no_timer,
+         settings_path=None, sensor="mono"):
     """SLAM over `frames`, 0.05 s apart, through the System façade on
-    `device` (default CUDA), routed on cfg.sensor: track_monocular ("mono",
-    each frame an [H, W] image), track_stereo ("stereo", each frame a
-    rectified (left, right) pair) or track_rgbd ("rgbd", each frame an
-    (image, depth map) pair). Initialization, tracking, keyframe insertion
-    and local mapping on each keyframe; from frame `localize_from` on, the
-    session runs in localization-only mode (mapping paused). `cfg` defaults
-    to tracker_config() (mono, 752x480, OrbConfig(1000, 8), kmax 128, lmax
+    `device` (default CUDA), routed on the session's sensor: track_monocular
+    ("mono", each frame an [H, W] image), track_stereo ("stereo", each frame
+    a (left, right) pair: rectified, a fisheye rig's, or raw images that the
+    settings file's rectification blocks remap) or track_rgbd ("rgbd", each
+    frame an (image, depth map) pair). Initialization, tracking, keyframe
+    insertion and local mapping on each keyframe; from frame
+    `localize_from` on, the session runs in localization-only mode (mapping
+    paused). The session is System(settings_path, sensor) when a settings
+    file is given, else System(config=cfg), `cfg` defaulting to
+    tracker_config() (mono, 752x480, OrbConfig(1000, 8), kmax 128, lmax
     8192, window 8). `timer(name)` is a context manager wrapped around each
     frame ("frame"). Returns the System, whose tracker holds the map and the
     trajectory."""
     from .api.system import System
 
-    if cfg is None:
-        cfg = tracker_config(device)
-    sys_ = System(config=cfg, device=device)
+    if settings_path is not None:
+        if cfg is not None:
+            raise ValueError("pass cfg or settings_path, not both")
+        sys_ = System(settings_path, sensor=sensor, device=device)
+    else:
+        sys_ = System(config=cfg if cfg is not None else tracker_config(device), device=device)
     track = {"mono": lambda f, ts: sys_.track_monocular(f, ts),
              "stereo": lambda f, ts: sys_.track_stereo(f[0], f[1], ts),
-             "rgbd": lambda f, ts: sys_.track_rgbd(f[0], f[1], ts)}[cfg.sensor]
+             "rgbd": lambda f, ts: sys_.track_rgbd(f[0], f[1], ts)}[sys_.tracker.base_sensor]
     for i, frame in enumerate(frames):
         if i == localize_from:
             sys_.activate_localization_mode()
@@ -291,6 +308,106 @@ def slam(frames, cfg=None, device=None, localize_from=None, timer=tracker.no_tim
             track(frame, 0.05 * i)
     sys_.tracker.settle()
     return sys_
+
+
+def kb8_stereo_settings(K8, img_wh, baseline: float, n_features: int = 1000,
+                        n_levels: int = 8, th_depth: float = 20.0) -> str:
+    """The text of a TUM-VI-style settings file (schema 1.0) for a KB8
+    fisheye stereo rig: Camera1 = Camera2 = K8 [8], the right camera
+    `baseline` along the left camera's x (Stereo.T_c1_c2)."""
+    cams = "\n".join(f"Camera{c}.{k}: {float(v)!r}" for c in (1, 2) for k, v in zip(
+        ("fx", "fy", "cx", "cy", "k1", "k2", "k3", "k4"), K8))
+    return f"""%YAML:1.0
+File.version: "1.0"
+Camera.type: "KannalaBrandt8"
+{cams}
+Camera.width: {img_wh[0]}
+Camera.height: {img_wh[1]}
+Camera.fps: 20
+Stereo.ThDepth: {th_depth!r}
+Stereo.T_c1_c2: !!opencv-matrix
+   rows: 4
+   cols: 4
+   dt: f
+   data: [1.0, 0.0, 0.0, {baseline!r}, 0.0, 1.0, 0.0, 0.0,
+          0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0]
+ORBextractor.nFeatures: {n_features}
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: {n_levels}
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
+
+
+EUROC_K = (458.654, 457.296, 367.215, 248.375)  # cam0 of EuRoC MAV (tests/test_api.py)
+EUROC_D = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0)
+EUROC_BASELINE = 0.11  # metres, the right camera along the left camera's x
+
+
+def euroc_legacy_settings() -> str:
+    """The text of an old-format EuRoC stereo settings file
+    (Examples_old/Stereo/EuRoC.yaml) at 752x480: LEFT. / RIGHT.
+    rectification blocks with the raw camera EUROC_K and rad-tan EUROC_D on
+    both sides, R = I, and the rectified cameras P = FULL_K with
+    RIGHT.P[0, 3] = -fx * EUROC_BASELINE; ThDepth 35, 1000 features on 8
+    levels. `data:[` without a space, as those files write it."""
+    K, D, P, img_wh = EUROC_K, EUROC_D, FULL_K, FULL_WH
+    k = f"[{K[0]!r}, 0.0, {K[2]!r}, 0.0, {K[1]!r}, {K[3]!r}, 0.0, 0.0, 1.0]"
+    d = "[" + ", ".join(repr(float(v)) for v in D) + "]"
+    eye = "[1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0]"
+
+    def p(tx):
+        return (f"[{P[0]!r}, 0.0, {P[2]!r}, {tx!r}, 0.0, {P[1]!r}, {P[3]!r}, 0.0, "
+                f"0.0, 0.0, 1.0, 0.0]")
+
+    blocks = []
+    for side, tx in (("LEFT", 0.0), ("RIGHT", -P[0] * EUROC_BASELINE)):
+        blocks.append(f"""#--------------------------------------------------------------
+# {side} camera: rectification parameters
+#--------------------------------------------------------------
+{side}.height: {img_wh[1]}
+{side}.width: {img_wh[0]}
+{side}.D: !!opencv-matrix
+   rows: 1
+   cols: {len(D)}
+   dt: d
+   data:{d}
+{side}.K: !!opencv-matrix
+   rows: 3
+   cols: 3
+   dt: d
+   data:{k}
+{side}.R:  !!opencv-matrix
+   rows: 3
+   cols: 3
+   dt: d
+   data:{eye}
+{side}.P:  !!opencv-matrix
+   rows: 3
+   cols: 4
+   dt: d
+   data:{p(tx)}""")
+    return f"""%YAML:1.0
+
+# Camera parameters (after rectification)
+Camera.fx: {P[0]!r}
+Camera.fy: {P[1]!r}
+Camera.cx: {P[2]!r}
+Camera.cy: {P[3]!r}
+Camera.width: {img_wh[0]}
+Camera.height: {img_wh[1]}
+Camera.fps: 20.0
+Camera.RGB: 1
+ThDepth: 35.0
+
+""" + "\n\n".join(blocks) + f"""
+
+ORBextractor.nFeatures: 1000
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
 
 
 def _blur3(img, sigma: float = 0.8):
@@ -327,13 +444,47 @@ def plane_scene(seed: int = 0):
     return planes
 
 
-def _plane_hits(planes, K, img_wh, R_cw, t_cw):
-    """Per plane: (plane, depth along each pixel's ray, texture u, v,
-    inside) for the camera Tcw = (R_cw, t_cw)."""
+def _pixels(img_wh):
     w, h = img_wh
+    return np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+
+
+def _pinhole_rays(K, img_wh):
     fx, fy, cx, cy = K[:4]
-    us, vs = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
-    rays = np.stack([(us - cx) / fx, (vs - cy) / fy, np.ones_like(us)], -1)
+    us, vs = _pixels(img_wh)
+    return np.stack([(us - cx) / fx, (vs - cy) / fy, np.ones_like(us)], -1)
+
+
+RADTAN_NEWTON_STEPS = 20
+
+
+def radtan_undistort_np(K, D, us, vs):
+    """Rad-tan undistortion (k1, k2, p1, p2, k3) of raw pixels in float64
+    numpy by Newton steps on the distortion map, converged to ~1e-12 in the
+    image corners: pixels -> rays [..., 3] with z = 1."""
+    fx, fy, cx, cy = (float(v) for v in K[:4])
+    k1, k2, p1, p2, k3 = (float(v) for v in np.pad(np.ravel(D), (0, 5))[:5])
+    xd, yd = (us - cx) / fx, (vs - cy) / fy
+    x, y = xd.copy(), yd.copy()
+    for _ in range(RADTAN_NEWTON_STEPS):
+        r2 = x * x + y * y
+        rad = 1 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        drad = k1 + r2 * (2 * k2 + 3 * k3 * r2)   # d rad / d r2
+        ex = x * rad + 2 * p1 * x * y + p2 * (r2 + 2 * x * x) - xd
+        ey = y * rad + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y - yd
+        jxx = rad + 2 * x * x * drad + 2 * p1 * y + 6 * p2 * x
+        jxy = 2 * x * y * drad + 2 * p1 * x + 2 * p2 * y
+        jyx = 2 * x * y * drad + 2 * p1 * x + 2 * p2 * y
+        jyy = rad + 2 * y * y * drad + 6 * p1 * y + 2 * p2 * x
+        det = jxx * jyy - jxy * jyx
+        x, y = x - (jyy * ex - jxy * ey) / det, y - (jxx * ey - jyx * ex) / det
+    return np.stack([x, y, np.ones_like(x)], -1)
+
+
+def _plane_hits(planes, rays, R_cw, t_cw):
+    """Per plane: (plane, depth along each pixel's ray, texture u, v,
+    inside) for the camera Tcw = (R_cw, t_cw) whose pixels look along
+    `rays` [H, W, 3] (z = 1 in the camera)."""
     R_wc = np.asarray(R_cw, np.float64).T
     c = -R_wc @ np.asarray(t_cw, np.float64)
     rays_w = rays @ R_wc.T
@@ -354,14 +505,44 @@ def render_planes(planes, K, img_wh, R_cw, t_cw):
     return render_with_depth(planes, K, img_wh, R_cw, t_cw, with_depth=False)[0]
 
 
+def kb8_rays(K8, img_wh):
+    """[H, W, 3] float64 rays (z = 1) of a KB8 fisheye camera K8 [8]:
+    camera.kb8_unproject of every pixel, in float64 on the CPU."""
+    uv = torch.from_numpy(np.stack(_pixels(img_wh), -1))
+    return cam.kb8_unproject(torch.tensor(K8, dtype=torch.float64), uv).numpy()
+
+
+def radtan_rays(K, D, img_wh):
+    """[H, W, 3] float64 rays (z = 1) of the raw pixels of a pinhole camera K
+    with rad-tan distortion D (k1, k2, p1, p2, k3): radtan_undistort_np."""
+    return radtan_undistort_np(np.asarray(K, np.float64), D, *_pixels(img_wh))
+
+
+def render_rays(planes, rays, R_cw, t_cw):
+    """The planes seen from Tcw by a camera whose pixels look along `rays`
+    [H, W, 3] (kb8_rays, radtan_rays: compute them once per camera)."""
+    return _render(planes, rays, R_cw, t_cw, with_depth=False)[0]
+
+
+def render_radtan(planes, K, D, img_wh, R_cw, t_cw):
+    """The raw image of a pinhole camera K with rad-tan distortion D from
+    Tcw: each raw pixel undistorted onto its ray, then the planes hit as
+    render_planes does."""
+    return render_rays(planes, radtan_rays(K, D, img_wh), R_cw, t_cw)
+
+
 def render_with_depth(planes, K, img_wh, R_cw, t_cw, with_depth: bool = True):
     """(image, depth): render_planes and the [H, W] depth (camera z; rays
     have unit z) of the surface drawn at each pixel, 0 where there is none
     (PlaneScene.render_with_depth); depth None without with_depth."""
-    w, h = img_wh
+    return _render(planes, _pinhole_rays(K, img_wh), R_cw, t_cw, with_depth)
+
+
+def _render(planes, rays, R_cw, t_cw, with_depth: bool):
+    h, w = rays.shape[:2]
     img = np.zeros((h, w), np.float32)
     depth = np.zeros((h, w), np.float32) if with_depth else None
-    for pl, lam, tu, tv, inside in _plane_hits(planes, K, img_wh, R_cw, t_cw):
+    for pl, lam, tu, tv, inside in _plane_hits(planes, rays, R_cw, t_cw):
         if with_depth:
             depth = np.where(inside, lam.astype(np.float32), depth)
         tex = pl["tex"]

@@ -102,6 +102,41 @@ def gather_patches_flat_multi(imgs, xy_int):
     return patches.reshape(imgs.shape[0], -1, PATCH * PATCH)
 
 
+def refine_corners_flat(raw_flat, win: int = 4, iters: int = 3):
+    """Subpixel corner refinement on [N, 1681] raw patches by the normal
+    equations of cv::cornerSubPix: q = G^-1 sum w (grad grad^T) p over a
+    (2 win + 1)^2 window, iterated with the Gaussian weight re-centred on
+    the current estimate (the JAX package's `refine_corners_flat`; the
+    reference keeps integer FAST corners). Returns [N, 2] offsets clamped
+    to +-1 px, unchanged where the structure tensor is near-singular."""
+    n = raw_flat.shape[0]
+    P3 = raw_flat.reshape(n, PATCH, PATCH)
+    lo, hi = PR - win, PR + win + 1
+    Ix = 0.5 * (P3[:, lo:hi, lo + 1:hi + 1] - P3[:, lo:hi, lo - 1:hi - 1])
+    Iy = 0.5 * (P3[:, lo + 1:hi + 1, lo:hi] - P3[:, lo - 1:hi - 1, lo:hi])
+    ar = torch.arange(-win, win + 1, dtype=torch.float32, device=raw_flat.device)
+    dy, dx = torch.meshgrid(ar, ar, indexing="ij")
+    dx, dy = dx[None], dy[None]
+    sig2 = 2.0 * (win / 2.0) ** 2
+    Ixx, Ixy, Iyy = Ix * Ix, Ix * Iy, Iy * Iy
+    off = torch.zeros((n, 2), dtype=torch.float32, device=raw_flat.device)
+    for _ in range(iters):
+        wj = torch.exp(-((dx - off[:, 0, None, None]) ** 2
+                         + (dy - off[:, 1, None, None]) ** 2) / sig2)
+        gxx = torch.sum(wj * Ixx, dim=(1, 2))
+        gxy = torch.sum(wj * Ixy, dim=(1, 2))
+        gyy = torch.sum(wj * Iyy, dim=(1, 2))
+        bx = torch.sum(wj * (Ixx * dx + Ixy * dy), dim=(1, 2))
+        by = torch.sum(wj * (Ixy * dx + Iyy * dy), dim=(1, 2))
+        det = gxx * gyy - gxy * gxy
+        scale = torch.clamp(gxx + gyy, min=1e-9)
+        ok = det > 1e-6 * scale * scale
+        det_s = torch.where(ok, det, 1.0)
+        new = torch.stack([(gyy * bx - gxy * by) / det_s, (gxx * by - gxy * bx) / det_s], dim=-1)
+        off = torch.where(ok[:, None], torch.clamp(new, -1.0, 1.0), off)
+    return off
+
+
 def ic_angle_flat(flat_patches):
     """Intensity-centroid angle of [N, 1681] raw patches (IC_Angle,
     ORBextractor.cc:76-105): one [N, 1681] @ [1681, 2] f32 matmul."""
@@ -145,8 +180,8 @@ class OrbConfig:
     min_th_fast: float = 7.0
     cell: int = 35
     border: int = 19  # EDGE_THRESHOLD (ORBextractor.cc:73)
-    # subpixel corner refinement is off the tracking path (default False in
-    # the JAX package too); its port arrives with the slice that needs it
+    # gradient-based subpixel corner refinement (refine_corners_flat); off
+    # by default, as in the JAX package
     subpixel: bool = False
 
     def features_per_level(self):
@@ -184,9 +219,9 @@ class Features:
 
 def extract_level_patches(img, n_max: int, cfg: OrbConfig):
     """One level: detect + select + patch gather, in level coordinates.
-    Returns (xy, score, valid, raw_flat, blur_flat)."""
-    if cfg.subpixel:
-        raise NotImplementedError("subpixel refinement is not ported yet")
+    Returns (xy, score, valid, raw_flat, blur_flat); with cfg.subpixel, xy
+    carries refine_corners_flat's offsets (the patches stay gathered at the
+    integer corner)."""
     resp = fast_mod.detect(
         img, cfg.ini_th_fast, cfg.min_th_fast, cell=cfg.cell, border=cfg.border
     )
@@ -194,6 +229,8 @@ def extract_level_patches(img, n_max: int, cfg: OrbConfig):
     xy_int = xy.to(torch.int64)
     blurred = pyr_mod.gaussian_blur(img)
     both = gather_patches_flat_multi(torch.stack([img, blurred]), xy_int)
+    if cfg.subpixel:
+        xy = xy + refine_corners_flat(both[0])
     return xy, score, valid, both[0], both[1]
 
 

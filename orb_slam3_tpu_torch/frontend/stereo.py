@@ -1,5 +1,5 @@
-"""Rectified stereo matching and RGB-D depth binding (port of the pinhole
-part of orb_slam3_tpu/frontend/stereo.py).
+"""Stereo matching and RGB-D depth binding (port of
+orb_slam3_tpu/frontend/stereo.py).
 
 `Frame::ComputeStereoMatches` (`Frame.cc:811-981`) and
 `Frame::ComputeStereoFromRGBD` (`:984-1006`) as dense masked ops: one
@@ -7,15 +7,18 @@ part of orb_slam3_tpu/frontend/stereo.py).
 disparity range, the best match per left keypoint, an octave-strided SAD
 sweep on gathered strips refined by a parabola, then the median-distance
 rejection. The JAX package computes both on XLA, outside any Pallas kernel;
-here they are plain torch ops on any device. The non-rectified fisheye
-matcher comes with the fisheye slice.
+here they are plain torch ops on any device. `match_stereo_fisheye`
+matches a non-rectified (KB8 fisheye) pair by descriptor alone and
+triangulates each match (`Frame::ComputeStereoFishEyeMatches`,
+`KannalaBrandt8::TriangulateMatches`), in plain torch ops as well.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import matching
+from . import camera as cam
+from . import matching, two_view
 
 SAD_W = 5    # half window (11x11 patch, Frame.cc:906-949 uses w = 5)
 SAD_L = 5    # disparity search half-range of the subpixel refinement
@@ -136,3 +139,40 @@ def depth_from_rgbd(xy, depth_map, bf, depth_factor: float = 1.0,
     ok = (z > 0) & flat & (zmin > 0)
     ur = torch.where(ok, xy[:, 0] - _f32(bf, xy.device) / torch.clamp(z, min=1e-6), -1.0)
     return ur, torch.where(ok, z, 0.0), ok
+
+
+def match_stereo_fisheye(kind: int, K_l, K_r, R_rl, t_rl, xy_l, desc_l, valid_l,
+                         xy_r, desc_r, valid_r, ratio: float = 0.7,
+                         max_cos_parallax: float = 0.9998, max_reproj_px: float = 3.0):
+    """Non-rectified stereo: brute-force descriptor matching (ratio 0.7, the
+    lower index first on ties, then the cross-check; BFMatcher knn in
+    `Frame.cc:1126-1164`), then for each match the DLT triangulation of the
+    two unprojected rays against [I|0] and [R_rl|t_rl] (X_r = R_rl X_l +
+    t_rl), kept where the rays' parallax cosine is under 0.9998, the point
+    lies more than 0.05 in front of both cameras and it reprojects within
+    3 px in both images (`KannalaBrandt8::TriangulateMatches`).
+
+    Returns (depth [Nl], the z of the point in the left camera, 0 where
+    there is none; good [Nl])."""
+    idx, _, ok = matching.search_by_brute_force(desc_l, valid_l, desc_r, valid_r,
+                                                ratio=ratio, max_dist=matching.TH_LOW)
+    uv_r = xy_r[idx]
+    ray_l = cam.unproject(kind, K_l, xy_l)
+    ray_r = cam.unproject(kind, K_r, uv_r)   # in the right camera's frame
+    p0 = ray_l[:, :2] / torch.clamp(ray_l[:, 2:3], min=1e-9)
+    p1 = ray_r[:, :2] / torch.clamp(ray_r[:, 2:3], min=1e-9)
+    dev = xy_l.device
+    P0 = torch.cat([torch.eye(3, device=dev), torch.zeros((3, 1), device=dev)], dim=1)
+    P1 = torch.cat([R_rl, t_rl[:, None]], dim=1)
+    X_l = two_view.triangulate(P0, P1, p0, p1)
+
+    # parallax of the two rays, both in the left camera's frame
+    ray_r_l = ray_r @ R_rl
+    cosp = torch.sum(ray_l * ray_r_l, dim=-1) / torch.clamp(
+        torch.linalg.norm(ray_l, dim=-1) * torch.linalg.norm(ray_r_l, dim=-1), min=1e-9)
+    X_r = X_l @ R_rl.T + t_rl
+    err_l = torch.linalg.norm(cam.project(kind, K_l, X_l) - xy_l, dim=-1)
+    err_r = torch.linalg.norm(cam.project(kind, K_r, X_r) - uv_r, dim=-1)
+    good = (ok & (cosp < max_cos_parallax) & (X_l[:, 2] > 0.05) & (X_r[:, 2] > 0.05)
+            & (err_l < max_reproj_px) & (err_r < max_reproj_px))
+    return torch.where(good, X_l[:, 2], 0.0), good

@@ -5,7 +5,8 @@ Pose vertices hold Tcw as {"R": [N,3,3], "t": [N,3]} with g2o's
 left-multiplicative update Tcw <- exp(dxi) Tcw (`se3quat.h::oplusImpl`);
 landmarks are Euclidean {"x": [N,3]}. Residuals are written for one edge
 and batched by the engine. The mono and stereo reprojection edges, full and
-pose-only, are here (`OptimizableTypes.cpp`, `G2oTypes.cc`); the Sim3,
+pose-only, and the right-camera (ToBody) edges of a non-rectified stereo
+rig are here (`OptimizableTypes.cpp`, `G2oTypes.cc`); the Sim3,
 inertial and relative-pose residuals come with the slices that use them.
 """
 
@@ -54,6 +55,32 @@ def make_mono_pose_only_residual(kind: int):
     def residual(pose, data):
         Xc = lie.se3_apply(pose["R"], pose["t"], data["Xw"])
         return data["uv"] - cam.project(kind, data["K"], Xc)
+
+    return residual
+
+
+def make_tobody_residual(kind: int):
+    """Right-camera reprojection edge of a non-rectified (fisheye) rig:
+    obs_r - project_r(T_rl Tcw Xw) with the fixed left-to-right extrinsics;
+    the vertex is the left camera's pose (EdgeSE3ProjectXYZToBody,
+    `OptimizableTypes.h:59-87`). data = {"uv": [2], "K": [8] (right
+    intrinsics), "R_rl": [3,3], "t_rl": [3]}."""
+
+    def residual(pose, point, data):
+        Xl = lie.se3_apply(pose["R"], pose["t"], point["x"])
+        return data["uv"] - cam.project(kind, data["K"], data["R_rl"] @ Xl + data["t_rl"])
+
+    return residual
+
+
+def make_tobody_pose_only_residual(kind: int):
+    """Motion-only variant with the landmark as data
+    (EdgeSE3ProjectXYZOnlyPoseToBody). data = {"uv": [2], "K": [8],
+    "Xw": [3], "R_rl": [3,3], "t_rl": [3]}."""
+
+    def residual(pose, data):
+        Xl = lie.se3_apply(pose["R"], pose["t"], data["Xw"])
+        return data["uv"] - cam.project(kind, data["K"], data["R_rl"] @ Xl + data["t_rl"])
 
     return residual
 

@@ -3,7 +3,9 @@
 - `pose_optimize` / `pose_optimize_stereo`: motion-only BA with staged
   outlier gating (Optimizer::PoseOptimization, `Optimizer.cc:814-1113`;
   3 rounds x 6 iterations). For the pinhole camera they run kernel K2
-  (pose_kernel.py) on CUDA tensors and its plain version on CPU tensors.
+  (pose_kernel.py) on CUDA tensors and its plain version on CPU tensors;
+  for the KB8 fisheye camera plain torch ops (`_pose_gn`), as the JAX
+  package runs it on XLA.
 - `pose_optimize_two_cam`: the same over a non-rectified stereo rig, plain
   torch ops (no kernel in the JAX package either).
 - `match_local_map`: frustum cull and projection of the local-map snapshot,
@@ -56,22 +58,96 @@ def _project_points(kind, K, R, t, X):
     return cam.project(kind, K, Xc), Xc[..., 2]
 
 
-def _no_kernel(kind):
-    # The JAX package has no kernel for the KB8 fisheye camera either
-    # (track.py:48): its pose BA is plain XLA ops there and will be plain
-    # torch ops on the card here, with the fisheye slice that ports KB8.
-    raise NotImplementedError(
-        f"pose BA for camera kind {kind}: only PINHOLE is ported so far"
-    )
+def _pose_gn(res_fn, info, valid, gate, delta, R0, t0, rounds: int, iters: int):
+    """Motion-only BA of one SE3 pose in plain torch ops: `rounds` rounds of
+    `iters` damped Gauss-Newton steps (Huber in rounds 0-1, gated-cost
+    acceptance), each round ending in the chi2 reclassification
+    (Optimizer::PoseOptimization). res_fn(R, t) -> (r [M, d], z [M]), the
+    residuals and the camera depth of each row; info [M]; gate and delta
+    scalars or [M]. The Jacobian is jacfwd's and the 6x6 step solve_ex's,
+    whose non-finite result becomes a zero step. Returns (R, t, mask [M]
+    float)."""
+    dev = R0.device
+
+    def chi2_of(R, t):
+        r, z = res_fn(R, t)
+        return torch.where(z > 0, torch.sum(r * r, dim=-1) * info, 1e9)
+
+    def gated_cost(R, t, mask):
+        c2 = chi2_of(R, t)
+        capped = torch.minimum(c2, gate) if torch.is_tensor(gate) else torch.clamp(c2, max=gate)
+        return torch.sum(capped * mask)
+
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    zero6 = torch.zeros(6, dtype=torch.float32, device=dev)
+    valid_f = valid.to(torch.float32)
+    R, t, mask = R0, t0, valid_f
+    for round_i in range(rounds):
+        lam = torch.full((), 1e-3, dtype=torch.float32, device=dev)
+        c_cur = gated_cost(R, t, mask)
+        for _ in range(iters):
+            def res_at(dxi, R=R, t=t):
+                r = res_fn(*lie.se3_lplus(R, t, dxi))[0]
+                return r, r
+
+            J, r = jacfwd(res_at, has_aux=True)(zero6)  # [M, d, 6], [M, d]
+            c2 = torch.sum(r * r, dim=-1) * info
+            w_rob = robust.huber_weight(c2, delta) if round_i < 2 else torch.ones_like(c2)
+            wJ = J * (w_rob * info * mask)[:, None, None]
+            H = torch.einsum("nri,nrj->ij", J, wJ)
+            g = torch.einsum("nri,nr->i", wJ, r)
+            dxi = torch.linalg.solve_ex(H + lam * eye6, -g)[0]
+            dxi = torch.where(torch.isfinite(dxi).all(), dxi, 0.0)
+            Rn, tn = lie.se3_lplus(R, t, dxi)
+            c_new = gated_cost(Rn, tn, mask)
+            accept = c_new < c_cur
+            R, t = torch.where(accept, Rn, R), torch.where(accept, tn, t)
+            lam = torch.where(accept, lam * 0.5, lam * 4.0)
+            c_cur = torch.where(accept, c_new, c_cur)
+        mask = torch.where(chi2_of(R, t) < gate, valid_f, 0.0)
+    return R, t, mask
+
+
+def _pose_optimize_plain(kind, K, bf, R0, t0, uv, ur, Xw, inv_sigma2, valid,
+                         rounds, iters):
+    """The JAX package's XLA pose BA (`track.py:57-121`, `:152-219`) for a
+    camera without a kernel: mono rows, and with `ur` the rows with ur >= 0
+    carrying the third (uR = uL - bf/z) residual and the 7.815 gate."""
+    if ur is None:
+        def res_fn(R, t):
+            Xc = lie.se3_apply(R, t, Xw)
+            return uv - cam.project(kind, K, Xc), Xc[:, 2]
+
+        R, t, mask = _pose_gn(res_fn, inv_sigma2, valid, robust.CHI2_2DOF,
+                              robust.CHI2_2DOF ** 0.5, R0, t0, rounds, iters)
+        return R, t, mask > 0, torch.sum(mask > 0)
+    has_ur = ur >= 0.0
+    obs3 = torch.cat([uv, torch.where(has_ur, ur, 0.0)[:, None]], dim=1)
+    comp_w = torch.cat([torch.ones_like(uv), has_ur.to(torch.float32)[:, None]], dim=1)
+    gate = torch.where(has_ur, robust.CHI2_3DOF, robust.CHI2_2DOF)
+    deltas = torch.where(has_ur, robust.CHI2_3DOF ** 0.5, robust.CHI2_2DOF ** 0.5)
+
+    def res_fn(R, t):
+        Xc = lie.se3_apply(R, t, Xw)
+        p2 = cam.project(kind, K, Xc)
+        z = torch.where(torch.abs(Xc[:, 2]) < 1e-9, 1e-9, Xc[:, 2])
+        pred = torch.cat([p2, (p2[:, 0] - bf / z)[:, None]], dim=1)
+        return (obs3 - pred) * comp_w, Xc[:, 2]
+
+    R, t, mask = _pose_gn(res_fn, inv_sigma2, valid, gate, deltas, R0, t0, rounds, iters)
+    return R, t, mask > 0, torch.sum(mask > 0)
 
 
 def pose_optimize(kind: int, K, R0, t0, uv, Xw, inv_sigma2, valid,
                   rounds: int = 3, iters: int = 6):
     """Motion-only BA with staged outlier gating. R0/t0: initial Tcw; uv
     [N,2] observations of world points Xw [N,3]; inv_sigma2 [N]; valid [N].
-    Returns (R, t, inlier_mask [N], n_inliers)."""
+    Returns (R, t, inlier_mask [N], n_inliers). The pinhole camera runs
+    kernel K2; the KB8 camera plain torch ops, as the JAX package keeps it
+    on XLA (`track.py:48`)."""
     if kind != cam.PINHOLE:
-        _no_kernel(kind)
+        return _pose_optimize_plain(kind, K, 0.0, R0, t0, uv, None, Xw, inv_sigma2, valid,
+                                    rounds, iters)
     R, t, inl, n = pose_kernel.pose_ba(
         K[None, :4].contiguous(), R0[None], t0[None], uv[None], Xw[None],
         inv_sigma2[None], valid[None], rounds=rounds, iters=iters,
@@ -83,9 +159,12 @@ def pose_optimize_stereo(kind: int, K, bf, R0, t0, uv, ur, Xw, inv_sigma2,
                          valid, rounds: int = 3, iters: int = 6):
     """Motion-only BA with mixed mono / stereo edges: rows with ur >= 0 carry
     the (uL, v, uR) residual with uR = uL - bf/z and the 7.815 gate
-    (g2o::EdgeStereoSE3ProjectXYZOnlyPose); rows with ur < 0 are mono."""
+    (g2o::EdgeStereoSE3ProjectXYZOnlyPose); rows with ur < 0 are mono. K2's
+    stereo template for the pinhole camera, plain torch ops for KB8
+    (`track.py:134`)."""
     if kind != cam.PINHOLE:
-        _no_kernel(kind)
+        return _pose_optimize_plain(kind, K, bf, R0, t0, uv, ur, Xw, inv_sigma2, valid,
+                                    rounds, iters)
     if torch.is_tensor(bf):  # no copy when it already lies on the device as f32
         bf_t = bf.to(device=R0.device, dtype=torch.float32).reshape(1)
     else:
@@ -147,63 +226,20 @@ def pose_optimize_two_cam(kind: int, K_l, K_r, R_rl, t_rl, R0, t0,
     left-camera edges plus right-camera edges through the fixed extrinsics
     X_r = R_rl X_l + t_rl (PoseOptimization with the ToBody edges,
     `Optimizer.cc:871-977`). Plain torch ops (the JAX package has no kernel
-    for it): Jacobians by jacfwd, the 6x6 step by solve_ex, whose non-finite
-    result becomes a zero step. Returns (R, t, inlier_l, inlier_r, n)."""
-    delta = robust.CHI2_2DOF ** 0.5
-    gate = robust.CHI2_2DOF
-    info = torch.cat([info_l, info_r])
+    for it). Returns (R, t, inlier_l, inlier_r, n)."""
+    n_l = uv_l.shape[0]
 
-    def residuals(R, t):
+    def res_fn(R, t):
         Xl = lie.se3_apply(R, t, Xw_l)
         rl = uv_l - cam.project(kind, K_l, Xl)
         Xr = lie.se3_apply(R, t, Xw_r) @ R_rl.T + t_rl
         rr = uv_r - cam.project(kind, K_r, Xr)
-        return rl, rr, Xl[:, 2], Xr[:, 2]
+        return torch.cat([rl, rr]), torch.cat([Xl[:, 2], Xr[:, 2]])
 
-    def chi2_of(R, t):
-        rl, rr, zl, zr = residuals(R, t)
-        c2l = torch.sum(rl * rl, dim=-1) * info_l
-        c2r = torch.sum(rr * rr, dim=-1) * info_r
-        return torch.where(zl > 0, c2l, 1e9), torch.where(zr > 0, c2r, 1e9)
-
-    def gated_cost(R, t, ml, mr):
-        c2l, c2r = chi2_of(R, t)
-        return (torch.sum(torch.clamp(c2l, max=gate) * ml)
-                + torch.sum(torch.clamp(c2r, max=gate) * mr))
-
-    eye6 = torch.eye(6, dtype=torch.float32, device=R0.device)
-    zero6 = torch.zeros(6, dtype=torch.float32, device=R0.device)
-    R, t = R0, t0
-    ml, mr = valid_l.to(torch.float32), valid_r.to(torch.float32)
-    for round_i in range(rounds):
-        lam = torch.tensor(1e-3, dtype=torch.float32, device=R0.device)
-        c_cur = gated_cost(R, t, ml, mr)
-        mask = torch.cat([ml, mr])
-        for _ in range(iters):
-            def res_flat(dxi, R=R, t=t):
-                Rn, tn = lie.se3_lplus(R, t, dxi)
-                rl, rr, _, _ = residuals(Rn, tn)
-                return torch.cat([rl.reshape(-1), rr.reshape(-1)])
-
-            r2 = res_flat(zero6).reshape(-1, 2)
-            J2 = jacfwd(res_flat)(zero6).reshape(-1, 2, 6)
-            c2 = torch.sum(r2 * r2, dim=-1) * info
-            w_rob = robust.huber_weight(c2, delta) if round_i < 2 else torch.ones_like(c2)
-            wJ = J2 * (w_rob * info * mask)[:, None, None]
-            H = torch.einsum("nri,nrj->ij", J2, wJ)
-            g = torch.einsum("nri,nr->i", wJ, r2)
-            dxi = torch.linalg.solve_ex(H + lam * eye6, -g)[0]
-            dxi = torch.where(torch.isfinite(dxi).all(), dxi, 0.0)
-            Rn, tn = lie.se3_lplus(R, t, dxi)
-            c_new = gated_cost(Rn, tn, ml, mr)
-            accept = c_new < c_cur
-            R, t = torch.where(accept, Rn, R), torch.where(accept, tn, t)
-            lam = torch.where(accept, lam * 0.5, lam * 4.0)
-            c_cur = torch.where(accept, c_new, c_cur)
-        c2l, c2r = chi2_of(R, t)
-        ml = torch.where(c2l < gate, valid_l.to(torch.float32), 0.0)
-        mr = torch.where(c2r < gate, valid_r.to(torch.float32), 0.0)
-    return R, t, ml > 0, mr > 0, (ml > 0).sum() + (mr > 0).sum()
+    R, t, mask = _pose_gn(res_fn, torch.cat([info_l, info_r]), torch.cat([valid_l, valid_r]),
+                          robust.CHI2_2DOF, robust.CHI2_2DOF ** 0.5, R0, t0, rounds, iters)
+    inl = mask > 0
+    return R, t, inl[:n_l], inl[n_l:], inl.sum()
 
 
 def track_frame_visual(kind: int, K, bf,

@@ -1,6 +1,6 @@
 """Tracking state machine with synchronous local mapping (port of the
-pinhole visual paths of orb_slam3_tpu/tracking/tracker.py: mono, stereo
-and RGB-D).
+visual paths of orb_slam3_tpu/tracking/tracker.py: mono, stereo and RGB-D
+with a pinhole or a KB8 fisheye camera).
 
 - `initialize_monocular`: `Tracker._try_initialize`
   (MonocularInitialization + CreateInitialMapMonocular,
@@ -21,8 +21,13 @@ and RGB-D).
   keyframe insertion followed by the whole local-mapping stack on the same
   frame (`mapping/pipeline.py`: the JAX tracker's `async_mapping=False`
   path). A stereo pair is two extractions and `frontend/stereo.match_stereo`;
-  an RGB-D frame binds its depth map with `depth_from_rgbd`; either
-  initializes from one frame (`StereoInitialization`). With mapping paused
+  a non-rectified fisheye pair (`stereo_fisheye`) is matched and
+  triangulated by `match_stereo_fisheye`, its depth bound as ur = u - bf/z,
+  and the right camera's features join the pose BA through the rig's
+  extrinsics (`track.pose_optimize_two_cam`); an RGB-D frame binds its
+  depth map with `depth_from_rgbd`; each initializes from one frame
+  (`StereoInitialization`). A pinhole camera with rad-tan `dist_coeffs`
+  has its keypoints undistorted right after extraction. With mapping paused
   (localization mode) a depth sensor tracks against the frozen map plus the
   previous frame's visual-odometry points. Each frame's outcome is read on
   that frame, as the JAX tracker does at `pipeline_depth=1`: one host read
@@ -31,7 +36,7 @@ and RGB-D).
 Left out of the JAX class, each with the slice that brings it: the
 background mapper (`runtime/mapper.py`) with its commits and the software
 pipeline of in-flight frames (a later slice; ROADMAP Queue 1 item 10);
-fisheye stereo and keypoint undistortion (item 12b); the IMU (item 13);
+the IMU (item 13);
 relocalization, loop closing and global BA (item 14: until then
 `_try_relocalize` returns False, as the JAX one does without a loop closer,
 `tracker.py:690-691`).
@@ -68,7 +73,9 @@ LOST = 3
 class TrackerConfig:
     """The fields of the JAX TrackerConfig this path reads, with its
     defaults (`tracker.py:104-161`). The sensors "mono", "stereo" and
-    "rgbd" are ported; the inertial ones come with the inertial slice."""
+    "rgbd" are ported; the inertial ones come with the inertial slice. The
+    camera vectors, extrinsics and distortion may be tensors or anything
+    numpy reads; the Tracker moves them to its device."""
 
     K: torch.Tensor = None  # camera params [8]
     kind: int = cam.PINHOLE
@@ -89,6 +96,17 @@ class TrackerConfig:
     lmax: int = 8192
     match_radius_coarse: float = 15.0  # TrackWithMotionModel th (Tracking.cc:2879)
     match_radius_fine: float = 4.0
+    # non-rectified (fisheye) stereo: the right camera's intrinsics and the
+    # extrinsics X_r = R_rl X_l + t_rl; depth from two-view triangulation
+    # (Frame::ComputeStereoFishEyeMatches, Frame.cc:1126)
+    stereo_fisheye: bool = False
+    K_right: torch.Tensor = None
+    R_rl: torch.Tensor = None
+    t_rl: torch.Tensor = None
+    # pinhole rad-tan distortion (k1 k2 p1 p2 k3): keypoints are undistorted
+    # after extraction (Frame::UndistortKeyPoints, Frame.cc:747-780); None
+    # for rectified or distortion-free input
+    dist_coeffs: torch.Tensor = None
 
     def scale_factors(self):
         return self.orb.scale_factors(self.K.device)
@@ -231,16 +249,19 @@ def local_map(s: atlas_state.MapState, ref_kf: int):
 def track_frame(cfg: TrackerConfig, s: atlas_state.MapState, feats: orb.Features,
                 ref_kf: int, R_last, t_last, velocity=None, tracked=None,
                 last_inliers: int = 0, in_map=None, frame_ur=None, frame_depth=None,
-                th_depth_m: float = 0.0):
+                th_depth_m: float = 0.0, feats_r=None):
     """Track one frame against the map (`Tracker._track_frame_fused`
-    without the two-camera stage or chained prediction). The pose is
+    without chained prediction). The pose is
     predicted by the constant-velocity model when `velocity` = (Rv, tv) is
     given, else it is the last pose. `tracked` [L] is the previous frame's
     tracked mask; `in_map` defaults to `local_map(s, ref_kf)`. With
     `frame_ur` [F] (a depth sensor's right coordinates, -1 where none) the
     pose BA runs mono and stereo rows with cfg.bf; with `frame_depth` [F]
     the step also counts the tracked and untracked close points (depth in
-    (cfg.min_depth, th_depth_m)) into scal[2:4]. Returns the
+    (cfg.min_depth, th_depth_m)) into scal[2:4]. With `feats_r`, the right
+    image's features of a fisheye rig (cfg.stereo_fisheye), the step adds
+    the right-camera stage: the local map matched through the extrinsics
+    (K1) and the pose refined over both cameras. Returns the
     track_frame_visual outputs and the predicted pose (R_pred, t_pred)."""
     dev = s.device
     if in_map is None:
@@ -258,6 +279,11 @@ def track_frame(cfg: TrackerConfig, s: atlas_state.MapState, feats: orb.Features
     use_stereo = frame_ur is not None
     if not use_stereo:
         frame_ur = -torch.ones((s.fmax,), dtype=torch.float32, device=dev)
+    two_cam = {}
+    if feats_r is not None:
+        two_cam = dict(use_two_cam=True, rfeat_xy=feats_r.xy, rfeat_desc=feats_r.descriptors,
+                       rfeat_octave=feats_r.octave, rfeat_valid=feats_r.valid,
+                       K_r=cfg.K_right, R_rl=cfg.R_rl, t_rl=cfg.t_rl)
     out = track_mod.track_frame_visual(
         cfg.kind, cfg.K, cfg.bf if use_stereo else 0.0,
         s.lm_pos, s.lm_desc, in_map, s.lm_max_dist, s.lm_min_dist, s.lm_normal,
@@ -272,6 +298,7 @@ def track_frame(cfg: TrackerConfig, s: atlas_state.MapState, feats: orb.Features
         min_depth=cfg.min_depth, th_depth_m=th_depth_m,
         R_kf=s.kf_R[kf] if ref_kf >= 0 else None,
         t_kf=s.kf_t[kf] if ref_kf >= 0 else None,
+        **two_cam,
     )
     out["R_pred"], out["t_pred"] = R_pred, t_pred
     return out
@@ -310,7 +337,7 @@ def _np(a):
 
 
 class Tracker:
-    """The tracker of a pinhole camera (mono, stereo or RGB-D) with
+    """The tracker of a pinhole or KB8 camera (mono, stereo or RGB-D) with
     synchronous local mapping.
 
     `cfg.K` may be a tensor, whose device the tracker runs on, or anything
@@ -329,9 +356,18 @@ class Tracker:
             device = cfg.K.device
         dev = device_mod.resolve(device)
         K_np = np.asarray(_np(cfg.K), np.float32)
-        K = torch.as_tensor(K_np, device=dev)
+
+        def on_dev(a):
+            return None if a is None else torch.as_tensor(np.asarray(_np(a), np.float32),
+                                                          device=dev)
+
         # the tracker's own copy: growing the arena updates kmax / lmax
-        self.cfg = dataclasses.replace(cfg, K=K)
+        self.cfg = dataclasses.replace(
+            cfg, K=on_dev(K_np), K_right=on_dev(cfg.K_right), R_rl=on_dev(cfg.R_rl),
+            t_rl=on_dev(cfg.t_rl), dist_coeffs=on_dev(cfg.dist_coeffs))
+        if cfg.stereo_fisheye and (cfg.sensor != "stereo" or self.cfg.K_right is None
+                                   or self.cfg.R_rl is None or self.cfg.t_rl is None):
+            raise ValueError("stereo_fisheye needs the stereo sensor, K_right, R_rl and t_rl")
         self.device = dev
         self.base_sensor = cfg.sensor
         # close points lie nearer than bf * thDepth / fx (Tracking.cc:628)
@@ -339,7 +375,11 @@ class Tracker:
         self.map = empty_map(self.cfg, device=dev)
         self.state = NOT_INITIALIZED
         self.scale_factors = self.cfg.scale_factors()
-        self._extract = lambda im: orb.extract(im, self.cfg.orb)
+        # rad-tan undistortion of a pinhole camera's keypoints; descriptors
+        # stay sampled from the raw image, as in the reference
+        dist = self.cfg.dist_coeffs
+        self._undistort = (dist is not None and cfg.kind == cam.PINHOLE
+                           and float(np.abs(_np(dist)).max()) > 0)
         self.init_ref = None          # (features, timestamp)
         self.last = None              # dict: R, t, feats, ts
         self.velocity = None          # (Rv, tv): T_cur<-last
@@ -352,12 +392,24 @@ class Tracker:
         self.mapping_paused = False   # localization-only mode (System.cc:409)
         self._frame_ur = None         # [F] this frame's right coordinates (depth sensors)
         self._frame_depth = None      # [F] and depths
+        self._frame_feats_r = None    # the right image's features (fisheye stereo)
         self._census = None           # (tracked, untracked) close points of this frame
         self._vo_buffer = None        # localization mode: last frame's VO points
         self._map_version = 0         # bumps on structural map updates
         self._tracked_lms = None      # [L] landmarks tracked by the last frame
         self._feat_lm = None          # [F] landmark row of each feature of it
         self._caches = {}
+
+    def _extract(self, img) -> orb.Features:
+        """ORB features of one image, with the keypoints undistorted under
+        the rad-tan dist_coeffs of a pinhole camera (`Frame::
+        UndistortKeyPoints`); the descriptors stay sampled from the raw
+        image, as in the reference."""
+        f = orb.extract(img, self.cfg.orb)
+        if self._undistort:
+            f = dataclasses.replace(
+                f, xy=cam.undistort_points_radtan(self.cfg.K, self.cfg.dist_coeffs, f.xy))
+        return f
 
     # ------------------------------------------------------------------
     # host-side caches keyed by the map version
@@ -501,7 +553,24 @@ class Tracker:
             feats = self._extract(img)
             feats_r = self._extract(img_right) if stereo_pair else None
         ur = depth = None
-        if stereo_pair:
+        self._frame_feats_r = None
+        if stereo_pair and self.cfg.stereo_fisheye:
+            # the right features carry their own edges through the pose BA
+            self._frame_feats_r = feats_r
+            cfg = self.cfg
+            with GLOBAL_TIMER.stage("track.stereo_depth"):
+                depth, _ = stereo.match_stereo_fisheye(
+                    cfg.kind, cfg.K, cfg.K_right, cfg.R_rl, cfg.t_rl,
+                    feats.xy, feats.descriptors, feats.valid,
+                    feats_r.xy, feats_r.descriptors, feats_r.valid)
+                # the triangulated depth bound as an inverse-depth stereo
+                # measurement, ur = u - bf/z, as the JAX tracker binds it
+                # (tracker.py:812-826)
+                if cfg.bf > 0:
+                    ur = torch.where(depth > cfg.min_depth,
+                                     feats.xy[:, 0] - cfg.bf / torch.clamp(depth, min=1e-6),
+                                     -1.0)
+        elif stereo_pair:
             with GLOBAL_TIMER.stage("track.stereo_depth"):
                 ur, depth, _ = stereo.match_stereo(
                     feats.xy, feats.octave, feats.descriptors, feats.valid,
@@ -654,7 +723,7 @@ class Tracker:
                 velocity=self.velocity, tracked=self._tracked_lms,
                 last_inliers=self.last_inliers, in_map=self._local_map_mask(s),
                 frame_ur=self._frame_ur, frame_depth=self._frame_depth,
-                th_depth_m=self.th_depth_m)
+                th_depth_m=self.th_depth_m, feats_r=self._frame_feats_r)
             n_inliers, vel_poisoned, n_close_tracked, n_close_untracked = out["scal"].tolist()
         self.last_inliers = n_inliers
         self._census = ((n_close_tracked, n_close_untracked) if self._frame_depth is not None

@@ -371,3 +371,206 @@ def test_depth_from_rgbd_on_the_card_matches_the_cpu(cuda, stereo_frame):
     for g, r in zip(out_g, out_c):
         assert torch.equal(g, r)
     assert int(out_c[2].sum()) >= 500
+
+
+# ---------------------------------------------------------------- fisheye slice
+K8 = [260.0, 260.0, 256.0, 192.0, 0.01, -0.005, 0.002, -0.001]
+
+
+def _kb8_points(seed, n=2000):
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0.0, 1.3, n)
+    phi = rng.uniform(0, 2 * np.pi, n)
+    z = rng.uniform(0.5, 8.0, n)
+    r = z * np.tan(theta)
+    X = np.stack([r * np.cos(phi), r * np.sin(phi), z], -1)
+    X[0] = (0.0, 0.0, 3.0)  # on the optical axis
+    return torch.tensor(X, dtype=torch.float32)
+
+
+def test_kb8_camera_on_the_card_matches_the_cpu(cuda):
+    """KB8 project / unproject, their Jacobian and the rad-tan undistortion
+    (plain torch ops) on the card against the CPU."""
+    from torch.func import jacfwd, vmap
+
+    from orb_slam3_tpu_torch.frontend import camera as cam
+
+    K = torch.tensor(K8)
+    X = _kb8_points(31)
+    uv_c = cam.project(cam.KB8, K, X)
+    uv_g = cam.project(cam.KB8, K.to(cuda), X.to(cuda)).cpu()
+    torch.testing.assert_close(uv_g, uv_c, atol=1e-3, rtol=0)
+    ray_c = cam.unproject(cam.KB8, K, uv_c)
+    ray_g = cam.unproject(cam.KB8, K.to(cuda), uv_c.to(cuda)).cpu()
+    unit = lambda r: r / r.norm(dim=-1, keepdim=True)  # noqa: E731
+    torch.testing.assert_close(unit(ray_g), unit(ray_c), atol=1e-5, rtol=0)
+    jac = vmap(jacfwd(lambda k, x: cam.kb8_project(k, x), argnums=1), in_dims=(None, 0))
+    J_c, J_g = jac(K, X[:200]), jac(K.to(cuda), X[:200].to(cuda)).cpu()
+    assert J_g.dtype == torch.float32 and bool(torch.isfinite(J_g).all())
+    torch.testing.assert_close(J_g, J_c, rtol=1e-3, atol=1e-3 * float(J_c.abs().max()))
+    Kp = torch.tensor([458.654, 457.296, 367.215, 248.375, 0, 0, 0, 0])
+    D = torch.tensor([-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0])
+    uv = torch.rand(1000, 2) * torch.tensor([752.0, 480.0])
+    und_c = cam.undistort_points_radtan(Kp, D, uv)
+    und_g = cam.undistort_points_radtan(Kp.to(cuda), D.to(cuda), uv.to(cuda)).cpu()
+    torch.testing.assert_close(und_g, und_c, atol=1e-3, rtol=0)
+
+
+def _fisheye_pair(seed=3, n=1000):
+    """A KB8 stereo rig's keypoints (0.3 m baseline): n left keypoints, their
+    right partners with the same descriptor among distractors."""
+    from orb_slam3_tpu_torch.frontend import camera as cam
+
+    rng = np.random.default_rng(seed)
+    K = torch.tensor(K8)
+    X = torch.tensor(np.concatenate([rng.uniform(-6, 6, (n, 2)), rng.uniform(1.5, 8, (n, 1))],
+                                    1), dtype=torch.float32)
+    t_rl = torch.tensor([-0.3, 0.0, 0.0])
+    uv_l = cam.project(cam.KB8, K, X) + torch.tensor(rng.normal(size=(n, 2)) * 0.2,
+                                                      dtype=torch.float32)
+    uv_r = cam.project(cam.KB8, K, X + t_rl) + torch.tensor(rng.normal(size=(n, 2)) * 0.2,
+                                                             dtype=torch.float32)
+    desc = torch.from_numpy(rng.integers(0, 256, (n, 32)).astype(np.uint8))
+    perm = torch.from_numpy(rng.permutation(n))
+    valid = torch.from_numpy(rng.uniform(size=n) > 0.1)
+    return (K, K, torch.eye(3), t_rl, uv_l, desc, valid, uv_r[perm], desc[perm], valid[perm]), X
+
+
+def test_match_stereo_fisheye_on_the_card_matches_the_cpu(cuda):
+    from orb_slam3_tpu_torch.frontend import camera as cam
+    from orb_slam3_tpu_torch.frontend import stereo
+
+    args, X = _fisheye_pair()
+    d_c, g_c = stereo.match_stereo_fisheye(cam.KB8, *args)
+    d_g, g_g = (x.cpu() for x in stereo.match_stereo_fisheye(cam.KB8, *[a.to(cuda) for a in args]))
+    assert float((g_g == g_c).float().mean()) >= 0.99 and int(g_c.sum()) >= 500
+    both = g_g & g_c
+    torch.testing.assert_close(d_g[both], d_c[both], rtol=1e-4, atol=0)
+    rel = ((d_c[g_c] - X[g_c, 2]).abs() / X[g_c, 2])
+    assert float(rel.median()) < 0.06
+
+
+def test_remap_bilinear_on_the_card_matches_the_cpu(cuda):
+    from orb_slam3_tpu_torch.frontend import rectify
+
+    K = np.array([[458.654, 0, 367.215], [0, 457.296, 248.375], [0, 0, 1]])
+    P = np.array([[450.0, 0, 376.0, 0], [0, 450.0, 240.0, 0], [0, 0, 1, 0]])
+    m = torch.from_numpy(rectify.build_remap(K, [-0.2834, 0.0740, 1.94e-4, 1.76e-5, 0], np.eye(3),
+                                             P, 752, 480))
+    img = torch.rand(480, 752) * 255
+    out_c = rectify.remap_bilinear(img, m)
+    out_g = rectify.remap_bilinear(img.to(cuda), m.to(cuda)).cpu()
+    torch.testing.assert_close(out_g, out_c, atol=1e-3, rtol=0)
+
+
+def _kb8_pose_case(seed, n=8192, stereo=False):
+    from orb_slam3_tpu_torch.frontend import camera as cam
+
+    rng = np.random.default_rng(seed)
+    K = torch.tensor(K8)
+    Xw = torch.tensor(np.concatenate([rng.uniform(-5, 5, (n, 2)), rng.uniform(2, 8, (n, 1))], 1),
+                      dtype=torch.float32)
+    R_t, t_t = lie.se3_exp(torch.tensor([0.05, -0.02, 0.08, 0.02, -0.03, 0.01]))
+    Xc = Xw @ R_t.T + t_t
+    uv = cam.project(cam.KB8, K, Xc) + torch.tensor(rng.normal(size=(n, 2)) * 0.5,
+                                                     dtype=torch.float32)
+    uv[: n // 10] += 30.0
+    R0, t0 = lie.se3_exp(torch.tensor([0.03, -0.02, 0.02, 0.01, 0.02, -0.01]))
+    R0, t0 = R0 @ R_t, R0 @ t_t + t0
+    inv = torch.tensor(1.0 / 1.44 ** rng.integers(0, 8, n), dtype=torch.float32)
+    valid = torch.from_numpy(rng.uniform(size=n) < 0.15)
+    args = [K, R0, t0, uv, Xw, inv, valid]
+    if stereo:
+        ur = uv[:, 0] - 78.0 / Xc[:, 2] + torch.tensor(rng.normal(size=n) * 0.3,
+                                                       dtype=torch.float32)
+        ur[torch.from_numpy(rng.uniform(size=n) < 0.4)] = -1.0
+        args = [K, 78.0, R0, t0, uv, ur, Xw, inv, valid]
+    return args
+
+
+@pytest.mark.parametrize("stereo", [False, True])
+def test_kb8_pose_ba_on_the_card_matches_the_cpu(cuda, stereo):
+    """KB8 pose BA has no kernel (plain torch ops on the card, as the JAX
+    package keeps it on XLA): card and CPU within R 1e-5 / t 1e-4, the same
+    inliers; K2 does not launch."""
+    from orb_slam3_tpu_torch.frontend import camera as cam
+    from orb_slam3_tpu_torch.tracking import track
+
+    args = _kb8_pose_case(41, stereo=stereo)
+    fn = track.pose_optimize_stereo if stereo else track.pose_optimize
+    R_c, t_c, m_c, n_c = fn(cam.KB8, *args)
+    before = pk.launches
+    out = fn(cam.KB8, *[a.to(cuda) if torch.is_tensor(a) else a for a in args])
+    R_g, t_g, m_g, n_g = (x.cpu() for x in out)
+    assert pk.launches == before
+    assert torch.equal(m_g, m_c) and int(n_g) == int(n_c) >= 800
+    torch.testing.assert_close(R_g, R_c, atol=1e-5, rtol=0)
+    torch.testing.assert_close(t_g, t_c, atol=1e-4, rtol=0)
+
+
+def test_kb8_two_cam_on_the_card_matches_the_cpu(cuda):
+    from orb_slam3_tpu_torch.frontend import camera as cam
+    from orb_slam3_tpu_torch.tracking import track
+
+    K, R0, t0, uv, Xw, inv, valid = _kb8_pose_case(43)
+    R_rl, t_rl = torch.eye(3), torch.tensor([-0.3, 0.0, 0.0])
+    R_t, t_t = lie.se3_exp(torch.tensor([0.05, -0.02, 0.08, 0.02, -0.03, 0.01]))
+    uv_r = cam.project(cam.KB8, K, Xw @ R_t.T + t_t + t_rl)
+    args = (K, K, R_rl, t_rl, R0, t0, uv, Xw, inv, valid, uv_r, Xw, inv, valid.flip(0))
+    out_c = track.pose_optimize_two_cam(cam.KB8, *args)
+    out_g = [x.cpu() for x in track.pose_optimize_two_cam(cam.KB8, *[a.to(cuda) for a in args])]
+    assert torch.equal(out_g[2], out_c[2]) and torch.equal(out_g[3], out_c[3])
+    assert int(out_g[4]) == int(out_c[4]) and int(out_c[3].sum()) >= 500
+    torch.testing.assert_close(out_g[0], out_c[0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(out_g[1], out_c[1], atol=1e-4, rtol=0)
+
+
+def test_k1_at_the_right_camera_call(cuda, monkeypatch):
+    """K1 at the fisheye rig's right-camera search, as track_frame_visual
+    calls it: the local map (N = 8192) projected through T_rl with the KB8
+    camera against the right image's M = 1000 keypoints; the kernel equals
+    its plain version exactly on the inputs the call gave it."""
+    from orb_slam3_tpu_torch.frontend import camera as cam
+    from orb_slam3_tpu_torch.tracking import track
+
+    rng = np.random.default_rng(47)
+    N, M = 8192, 1000
+    K = torch.tensor(K8, device=cuda)
+    X = torch.tensor(np.concatenate([rng.uniform(-8, 8, (N, 2)), rng.uniform(2, 8, (N, 1))], 1),
+                     dtype=torch.float32, device=cuda)
+    R_rl, t_rl = torch.eye(3, device=cuda), torch.tensor([-0.3, 0.0, 0.0], device=cuda)
+    R, t = torch.eye(3, device=cuda), torch.zeros(3, device=cuda)
+    uv = cam.project(cam.KB8, K, X + t_rl).cpu().numpy()
+    desc = rng.integers(0, 256, (N, 32)).astype(np.uint8)
+    kp = np.stack([rng.uniform(0, 512, M), rng.uniform(0, 384, M)], 1)
+    kd = rng.integers(0, 256, (M, 32)).astype(np.uint8)
+    ko = rng.integers(0, 8, M).astype(np.int32)
+    inside = np.flatnonzero((uv[:, 0] >= 0) & (uv[:, 0] < 512) & (uv[:, 1] >= 0)
+                            & (uv[:, 1] < 384))
+    hit = rng.choice(inside, 400, replace=False)
+    kp[:400], kd[:400], ko[:400] = uv[hit] + rng.uniform(-2, 2, (400, 2)), desc[hit], 0
+    # distances from the right camera's centre: every landmark predicted at
+    # octave 1, its band 0..2 holding the planted keypoints
+    dist = torch.linalg.norm(X + t_rl, dim=-1)
+    seen = []
+    orig = mk.search_by_projection_kernel
+
+    def record(*a, **kw):
+        seen.append((a, kw))
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(mk, "search_by_projection_kernel", record)
+    f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=cuda)  # noqa: E731
+    _, ok, _, _, _ = track.match_local_map(
+        cam.KB8, K, R_rl @ R, R_rl @ t + t_rl, X, torch.from_numpy(desc).to(cuda),
+        torch.ones(N, dtype=torch.bool, device=cuda), dist * 1.1, dist / 1.2 ** 7,
+        torch.zeros((N, 3), device=cuda), f(kp), torch.from_numpy(kd).to(cuda),
+        torch.from_numpy(ko).to(cuda), torch.ones(M, dtype=torch.bool, device=cuda), 4.0,
+        1.2 ** torch.arange(8, dtype=torch.float32, device=cuda), img_wh=(512.0, 384.0))
+    (a, kw), = seen
+    ref = mk.search_by_projection_plain(*a, **kw)
+    got = mk.search_by_projection_kernel(*a, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r.cpu())
+    assert torch.equal(ok.cpu(), ref[2].cpu()) and int(ok.sum()) >= 200

@@ -3,7 +3,9 @@
 - Neither the package nor chip_smoke.py imports jax or orb_slam3_tpu.
 - The package imports without triton or nvcc (kernels build at first use).
 - Entry points (entry(), bootstrap(), slam(), the tracker's map and config,
-  Tracker, System) default to CUDA and raise where there is none.
+  Tracker, System, System(settings_path), to_tracker_config, the
+  rectifier, make_kb8) default to CUDA and raise where there is none.
+- Settings files are read without PyYAML or OpenCV.
 - The port's copy of the ORB pattern equals the JAX package's asset, and
   atlas/invariants.py is the port's own module.
 """
@@ -105,11 +107,42 @@ def test_slam_tracker_and_system_default_to_cuda_and_raise_without_it(monkeypatc
     assert s.track_monocular(frame, 0.0) is None and s.tracking_state() == ttracker.NOT_INITIALIZED
 
 
+def test_settings_rectifier_and_kb8_default_to_cuda_and_raise_without_it(monkeypatch,
+                                                                          tmp_path):
+    from orb_slam3_tpu_torch.api import settings as tsettings
+    from orb_slam3_tpu_torch.api import system as tsystem
+    from orb_slam3_tpu_torch.frontend import rectify as trect
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = tmp_path / "legacy.yaml"
+    path.write_text(tentry.euroc_legacy_settings())
+    s = tsettings.load_settings(str(path), "stereo")  # numpy only: no device
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsettings.to_tracker_config(s)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsystem.System(str(path), sensor="stereo")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trect.StereoRectifier(s.rect_left, s.rect_right, s.width, s.height)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcam.make_kb8(260.0, 260.0, 256.0, 192.0, 0.01, -0.005, 0.002, -0.001)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tentry.slam([], settings_path=str(path), sensor="stereo")
+    sys_ = tsystem.System(str(path), sensor="stereo", device="cpu")
+    assert sys_.tracker.device.type == "cpu" and sys_.rectifier.map_l.device.type == "cpu"
+
+
+def test_yaml_reading_needs_no_pyyaml():
+    src = (PKG / "api" / "settings.py").read_text()
+    assert "yaml" not in set(_imported_roots(PKG / "api" / "settings.py"))
+    assert "cv2" not in src
+
+
 def test_entry_points_import_no_jax():
     for rel in ("entry.py", "tracking/tracker.py", "atlas/invariants.py", "api/system.py",
                 "api/evaluate.py", "api/trajectory.py", "mapping/pipeline.py",
                 "mapping/fuse.py", "mapping/local_mapper.py", "utils/timing.py",
-                "utils/verbose.py"):
+                "utils/verbose.py", "api/settings.py", "frontend/rectify.py",
+                "frontend/camera.py", "frontend/stereo.py"):
         roots = set(_imported_roots(PKG / rel))
         assert not roots & set(FORBIDDEN), (rel, roots & set(FORBIDDEN))
 

@@ -234,8 +234,14 @@ def test_loss_new_map_and_reset(session):
 
 def test_system_raises_for_what_is_not_ported(session):
     cfg = session["cfg"]
-    with pytest.raises(NotImplementedError, match="settings"):
-        tsys.System("settings.yaml")
+    # settings files are read (test_torch_settings.py); a vocabulary and a
+    # saved Atlas wait for their slices
+    with pytest.raises(FileNotFoundError):
+        tsys.System("no-such-settings.yaml", device="cpu")
+    with pytest.raises(NotImplementedError, match="vocabulary"):
+        tsys.System(config=cfg, vocabulary=object())
+    with pytest.raises(NotImplementedError, match="Atlas"):
+        tsys.System(config=cfg, atlas_path="atlas.npz")
     with pytest.raises(NotImplementedError, match="inertial"):
         tsys.System(config=cfg, sensor="mono-imu")
     with pytest.raises(NotImplementedError, match="inertial"):
