@@ -89,7 +89,7 @@ Phases; any failure exits non-zero without the final `ok` line:
      (System(settings_path, "stereo").track_stereo, TrackerConfig defaults),
      each session with the launch counters zeroed just before it: the KB8
      fisheye rig of tests/test_slam_fisheye.py (512x384, K8, 0.3 m
-     baseline, 1000 features on 8 levels, PlaneScene seed 5, 20 frames
+     baseline, 1000 features on 8 levels, PlaneScene seed 5, 10 frames
      rendered by the numpy KB8 renderer: >= 70% tracked, unscaled ATE <
      0.05) and the legacy EuRoC stereo file (LEFT./RIGHT. blocks, 752x480,
      raw images rendered through cam0's rad-tan distortion, 0.11 m
@@ -105,7 +105,30 @@ Phases; any failure exits non-zero without the final `ok` line:
      against their plain versions; then per session the frame and
      keyframe-frame ms by stage, the plain KB8 pose BA's time and CUDA
      kernels per call, and K1's launches by call site.
-Phases 6-10 print one JSON line with each kernel's bound and launches by
+ 11. relocalization, loop closing and map merging at full width (752x480,
+     1000 features, TrackerConfig defaults, RGB-D with th_depth 20 and bf
+     450 x 0.1; each vocabulary trained in the run, branching 8, depth 3,
+     on held-out views) through entry.slam(vocabulary=...)
+     (System.track_rgbd), each session with the launch counters zeroed
+     just before it: reloc-full (tests/test_loop_reloc.py's blackout:
+     PlaneScene seed 5, 14 frames, 3 blank, a resume at frame 6's view:
+     lost after the blank frames, OK after the resume, camera centre within
+     0.15, one map), loop-full (tests/test_loop_closing.py's closed loop:
+     the numpy room scene, seed 3, 110 frames of 1.12 turns, kf_max_frames
+     2: phase-1 keyframe ATE < 0.10, >= 1 loop, post-loop ATE < max(1.05 x
+     pre, 0.05) and < 0.12, the last 10 frames tracked, the Atlas
+     invariants) and merge-full (tests/test_loop_reloc.py's multimap merge:
+     seed 6, 24 frames, 7 blank, a resume over frames 40 -> 6: two maps
+     after the blackout, >= 1 merge, one map id at the end); K1 launched at
+     the merge site (merge_duplicates_at_keyframe) and equal to its plain
+     version on the last merge call's inputs, that merge from the same
+     state on the card and on the CPU plain path equal; K2 launched at the
+     relocalization site and within R 1e-5 / t 1e-4 of its plain version
+     on that call's inputs; then per session the frame and keyframe-frame
+     ms, on_keyframe ms split into query and cascade, a correction's parts
+     (landmark transport, essential graph, fuse window), each
+     relocalization attempt's ms, and System.run_global_ba on the loop map.
+Phases 6-11 print one JSON line with each kernel's bound and launches by
 path and call site; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -1714,7 +1737,10 @@ def phase_depth(dev, gpu):
 # baseline) on phase 9's stereo scene
 FISHEYE_K8 = (260.0, 260.0, 256.0, 192.0, 0.01, -0.005, 0.002, -0.001)
 FISHEYE_WH, FISHEYE_BASE = (512, 384), 0.3
-SETTINGS_SESSIONS = (("fisheye-stereo-full", 20, 5), ("euroc-rectified-full", 20, 2))
+# the fisheye session runs 10 frames (20 until phase 11 came): its frames
+# cost ~1.2 s each, all of it the host-bound plain KB8 pose BA, and the
+# script keeps to its time budget with phase 11
+SETTINGS_SESSIONS = (("fisheye-stereo-full", 10, 5), ("euroc-rectified-full", 20, 2))
 
 
 def settings_frames(name, n, seed):
@@ -2136,6 +2162,379 @@ def phase_settings(dev, gpu):
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+LOOP_K = (450.0, 450.0, 376.0, 240.0)
+LOOP_FRAMES, LOOP_RADIUS, LOOP_TURNS = 110, 1.6, 1.12
+RELOC_FRAMES, MERGE_FRAMES = 14, 24
+
+
+def loop_sessions():
+    """(name, frames, R_gt, t_gt, cfg fields, vocabulary views, until) of
+    phase 11's three sessions: tests/test_loop_reloc.py's relocalization
+    (PlaneScene seed 5: 14 frames, 3 blank frames, a resume at frame 6's
+    view) and multimap merge (seed 6 along the orbit with advance 0.05: 24
+    frames, 7 blank ones, a resume over frames 40 -> 6 in steps of 2 until
+    the maps merge), and tests/test_loop_closing.py's closed loop (the numpy
+    room scene, seed 3, exposure jitter 0.04, 110 frames of 1.12 turns).
+    Every frame is an (image, depth map) pair at 752x480, ray-cast on the
+    card (entry.QuadScene; the plane scenes as entry.plane_quads, within
+    0.005 grey levels of entry.render_with_depth); the vocabulary views are
+    held out (the first 3 orbit views, or 4 views of a smaller circle)."""
+    import numpy as np
+
+    from orb_slam3_tpu_torch import entry
+
+    K, wh = entry.FULL_K, entry.FULL_WH
+    blank = (np.zeros((wh[1], wh[0]), np.float32), np.ones((wh[1], wh[0]), np.float32))
+    out = []
+    scene = entry.QuadScene(K, wh, entry.plane_quads(entry.plane_scene(5)))
+    R, t = entry.orbit_trajectory(RELOC_FRAMES)
+    frames = [scene.render_with_depth(R[i], t[i]) for i in list(range(RELOC_FRAMES)) + [6]]
+    out.append(("reloc-full", frames[:RELOC_FRAMES] + [blank] * 3 + frames[-1:], R, t,
+                dict(kf_max_frames=5), [f[0] for f in frames[:3]], None))
+    scene = entry.QuadScene(K, wh, entry.plane_quads(entry.plane_scene(6)))
+    R, t = entry.orbit_trajectory(60, advance=0.05)
+    frames = [scene.render_with_depth(R[i], t[i])
+              for i in list(range(MERGE_FRAMES)) + list(range(40, 4, -2))]
+    R3, t3 = entry.orbit_trajectory(3)
+    views = [scene.render(R3[i], t3[i]) for i in range(3)]
+    out.append(("merge-full", frames[:MERGE_FRAMES] + [blank] * 7 + frames[MERGE_FRAMES:],
+                R, t, dict(kf_max_frames=2), views,
+                lambda sys_: sys_.tracker.loop_closer.n_merges > 0))
+    scene = entry.room_scene(np.array(LOOP_K), img_wh=wh, seed=3, exposure_jitter=0.04)
+    Rv, tv = entry.loop_trajectory(4, radius=1.0, start_angle=0.4)
+    views = [scene.render(Rv[i], tv[i]) for i in range(4)]
+    R, t = entry.loop_trajectory(LOOP_FRAMES, radius=LOOP_RADIUS, loops=LOOP_TURNS)
+    frames = [scene.render_with_depth(R[i], t[i]) for i in range(LOOP_FRAMES)]
+    out.append(("loop-full", frames, R, t, dict(kf_max_frames=2), views, None))
+    return out
+
+
+def kf_ate(s, R_gt, t_gt, dt=0.05):
+    """tests/test_loop_closing.py's _kf_ate: unscaled RMS ATE of the valid
+    keyframes against the truth, matched by timestamp."""
+    import numpy as np
+
+    from orb_slam3_tpu_torch.api import evaluate
+
+    rows = np.flatnonzero(s.kf_valid.cpu().numpy())
+    idx = np.clip(np.round(s.kf_timestamp.cpu().numpy()[rows] / dt).astype(int), 0,
+                  len(R_gt) - 1)
+    est = evaluate.camera_centers(s.kf_R.cpu().numpy()[rows], s.kf_t.cpu().numpy()[rows])
+    gt = evaluate.camera_centers(R_gt[idx], t_gt[idx])
+    return evaluate.ate_rmse(idx.astype(float), est, idx.astype(float), gt, with_scale=False)[0]
+
+
+def run_loop_session(dev, name, frames, R_gt, t_gt, fields, views, until):
+    """One phase-11 session through entry.slam(vocabulary=...) ->
+    System.track_rgbd, the launch counters zeroed just before it, every
+    stage of the stage timer synchronised at its end. Records each frame's
+    time and launches; K1's launches inside merge_duplicates_at_keyframe
+    (the merge site) and the last call's inputs; K2's launches inside the
+    relocalization and that call's inputs; each relocalization attempt's
+    time and outcome; the state after every frame that the gates read."""
+    import contextlib
+
+    import torch
+
+    from orb_slam3_tpu_torch import entry
+    from orb_slam3_tpu_torch.frontend import match_kernel as mk
+    from orb_slam3_tpu_torch.mapping import fuse
+    from orb_slam3_tpu_torch.tracking import pose_kernel as pk
+    from orb_slam3_tpu_torch.tracking import tracker
+    from orb_slam3_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    cfg = entry.tracker_config(dev, sensor="rgbd", bf=450.0 * 0.1, th_depth=20.0, **fields)
+    t0 = time.perf_counter()
+    voc = entry.train_vocabulary(views, cfg)
+    voc_s = time.perf_counter() - t0
+    rec = {"frames": [], "k1_merge": None, "merge_call": None, "k2_reloc": None,
+           "reloc": [], "states": [], "n_maps": [], "ate_pre": None,
+           "sites": {"K1 merge": 0, "K1 fuse": 0, "K2 reloc": 0}}
+    o = dict(k1=mk.search_by_projection_kernel, k2=pk.pose_ba, fuse=fuse.fuse_into_keyframe,
+             merge=fuse.merge_duplicates_at_keyframe, reloc=tracker.Tracker._try_relocalize,
+             stage=GLOBAL_TIMER.stage)
+    site = [None]
+
+    def k1_rec(*a, **kw):
+        if site[0] == "merge":
+            rec["k1_merge"] = (a, kw)
+        return o["k1"](*a, **kw)
+
+    def k2_rec(*a, **kw):
+        if site[0] == "reloc":
+            rec["k2_reloc"] = (a, kw)
+        return o["k2"](*a, **kw)
+
+    def fuse_rec(*a, **kw):
+        n0 = mk.launches
+        try:
+            return o["fuse"](*a, **kw)
+        finally:
+            rec["sites"]["K1 fuse"] += mk.launches - n0
+
+    def merge_rec(kind, K8, s, row, sf, **kw):
+        rec["merge_call"] = (kind, K8, s, row, sf, kw)
+        site[0], n0 = "merge", mk.launches
+        try:
+            return o["merge"](kind, K8, s, row, sf, **kw)
+        finally:
+            rec["sites"]["K1 merge"] += mk.launches - n0
+            site[0] = None
+
+    def reloc_rec(self, feats):
+        site[0], n0 = "reloc", pk.launches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        try:
+            ok = o["reloc"](self, feats)
+        finally:
+            torch.cuda.synchronize()
+            rec["sites"]["K2 reloc"] += pk.launches - n0
+            site[0] = None
+        rec["reloc"].append(dict(ms=(time.perf_counter() - t1) * 1e3, ok=ok))
+        return ok
+
+    n1 = int(LOOP_FRAMES / LOOP_TURNS * 0.72)
+
+    def after_frame(sys_):
+        tr = sys_.tracker
+        rec["states"].append(tr.state)
+        rec["n_maps"].append(int(tr.map.n_maps))
+        if name == "loop-full" and len(rec["states"]) == n1:
+            rec["ate_pre"] = kf_ate(tr.map, R_gt, t_gt)
+            rec["state_pre"] = tr.state
+        return until is not None and until(sys_)
+
+    def frame_timer(_name):
+        @contextlib.contextmanager
+        def part():
+            n_kf = len(GLOBAL_TIMER.samples["track.kf_insert_sync"])
+            k = (mk.launches, pk.launches, rec["sites"]["K1 merge"], rec["sites"]["K2 reloc"])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            rec["frames"].append(dict(
+                ms=(time.perf_counter() - t1) * 1e3,
+                kf=len(GLOBAL_TIMER.samples["track.kf_insert_sync"]) > n_kf,
+                k1=mk.launches - k[0], k2=pk.launches - k[1],
+                k1_merge=rec["sites"]["K1 merge"] - k[2], k2_reloc=rec["sites"]["K2 reloc"] - k[3]))
+        return part()
+
+    GLOBAL_TIMER.reset()
+    mk.search_by_projection_kernel, pk.pose_ba = k1_rec, k2_rec
+    fuse.fuse_into_keyframe, fuse.merge_duplicates_at_keyframe = fuse_rec, merge_rec
+    tracker.Tracker._try_relocalize = reloc_rec
+    GLOBAL_TIMER.stage = lambda stage_name: GLOBAL_TIMER.stage_sync(stage_name, dev)
+    try:
+        mk.launches = pk.launches = 0
+        t0 = time.perf_counter()
+        system = entry.slam(frames, cfg, vocabulary=voc, timer=frame_timer, until=after_frame)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K1": mk.launches, "K2": pk.launches, **rec["sites"]}
+    finally:
+        mk.search_by_projection_kernel, pk.pose_ba = o["k1"], o["k2"]
+        fuse.fuse_into_keyframe, fuse.merge_duplicates_at_keyframe = o["fuse"], o["merge"]
+        tracker.Tracker._try_relocalize = o["reloc"]
+        GLOBAL_TIMER.stage = o["stage"]
+    tr = system.tracker
+    gba_s = None
+    if tr.gba is not None:
+        t1 = time.perf_counter()
+        tr.gba.join(timeout=600)  # the background campaign of the session's loop
+        gba_s = time.perf_counter() - t1
+        check(not tr.gba.failed, f"{name}: the background global BA failed: {tr.gba.error}")
+    print(f"[loop {name}] vocabulary trained in {voc_s:.1f} s ({voc.n_words} words); main path "
+          f"(entry.slam(vocabulary) -> System.track_rgbd, {len(rec['frames'])} frames): "
+          f"{wall:.2f} s; launches {launches}; loops {tr.loop_closer.n_loops}, merges "
+          f"{tr.loop_closer.n_merges}; relocalizations {[r['ok'] for r in rec['reloc']]}; "
+          f"background GBA waited {gba_s} s")
+    return dict(system=system, cfg=cfg, R_gt=R_gt, t_gt=t_gt, rec=rec, launches=launches,
+                samples={k: list(v) for k, v in GLOBAL_TIMER.samples.items()}, wall_s=wall)
+
+
+def loop_gates(name, run):
+    """The gates of tests/test_loop_reloc.py / tests/test_loop_closing.py
+    for the session. Returns (failed, summary)."""
+    import numpy as np
+
+    from orb_slam3_tpu_torch.api import evaluate
+    from orb_slam3_tpu_torch.atlas import invariants
+    from orb_slam3_tpu_torch.tracking import tracker
+
+    tr, rec = run["system"].tracker, run["rec"]
+    s = tr.map
+    lost = (tracker.RECENTLY_LOST, tracker.LOST)
+    summary = dict(state=tr.state, frames=len(rec["frames"]), n_kf=int(s.kf_valid.sum()),
+                   n_maps=int(s.n_maps), loops=tr.loop_closer.n_loops,
+                   merges=tr.loop_closer.n_merges)
+    if name == "reloc-full":
+        est = evaluate.camera_centers(tr.last["R"].cpu().numpy()[None],
+                                      tr.last["t"].cpu().numpy()[None])[0]
+        gt = evaluate.camera_centers(run["R_gt"][6][None], run["t_gt"][6][None])[0]
+        summary["centre_err"] = float(np.linalg.norm(est - gt))
+        conds = [(rec["states"][RELOC_FRAMES - 1] == tracker.OK, "not OK before the blackout"),
+                 (rec["states"][RELOC_FRAMES + 2] in lost,
+                  f"state {rec['states'][RELOC_FRAMES + 2]} after the blank frames"),
+                 (tr.state == tracker.OK, f"state {tr.state} after the resume"),
+                 (summary["centre_err"] < 0.15, f"camera centre {summary['centre_err']:.4f} off"),
+                 (int(s.n_maps) == 1, f"{int(s.n_maps)} maps")]
+    elif name == "merge-full":
+        ids = s.kf_map_id.cpu().numpy()[s.kf_valid.cpu().numpy()]
+        summary["map_ids"] = sorted(set(ids.tolist()))
+        conds = [(rec["states"][MERGE_FRAMES - 1] == tracker.OK, "not OK before the blackout"),
+                 (rec["n_maps"][MERGE_FRAMES + 6] == 2,
+                  f"{rec['n_maps'][MERGE_FRAMES + 6]} maps after the blackout"),
+                 (tr.loop_closer.n_merges >= 1, "the maps never merged"),
+                 (len(summary["map_ids"]) == 1, f"map ids {summary['map_ids']} at the end")]
+    else:
+        ate_pre, ate_post = rec["ate_pre"], kf_ate(s, run["R_gt"], run["t_gt"])
+        ok = tr.poses()[3]
+        summary.update(ate_pre=ate_pre, ate_post=ate_post, last10_tracked=bool(ok[-10:].all()),
+                       violations=invariants.check_all(s))
+        conds = [(rec.get("state_pre") == tracker.OK, "not OK after phase 1"),
+                 (ate_pre < 0.10, f"phase-1 keyframe ATE {ate_pre:.4f}"),
+                 (tr.loop_closer.n_loops >= 1, "no loop closed"),
+                 (ate_post < max(1.05 * ate_pre, 0.05),
+                  f"ATE worsened across the loop: {ate_pre:.4f} -> {ate_post:.4f}"),
+                 (ate_post < 0.12, f"post-loop ATE {ate_post:.4f}"),
+                 (summary["last10_tracked"], "tracking lost in the last 10 frames"),
+                 (not summary["violations"], f"invariants: {summary['violations'][:3]}")]
+    failed = [f"{name}: {msg}" for cond, msg in conds if not cond]
+    for msg in failed:
+        print(f"[loop] GATE FAILED: {msg}")
+    print(f"[loop {name}] " + ", ".join(f"{k} {v}" for k, v in summary.items()
+                                      if k != "violations"))
+    return failed, summary
+
+
+def merge_site_checks(run, gpu):
+    """K1 at the merge site exactly equal to its plain version on the last
+    merge call's inputs, and that merge_duplicates_at_keyframe from the same
+    state on the card and on the CPU plain path: the same kf_feat_lm,
+    lm_valid and pair count."""
+    import dataclasses
+
+    import torch
+
+    from orb_slam3_tpu_torch.frontend import match_kernel as mk
+    from orb_slam3_tpu_torch.mapping import fuse
+
+    a1, kw1 = run["rec"]["k1_merge"]
+    err, n_ok = compare_k1(mk.search_by_projection_kernel(*a1, **kw1),
+                           mk.search_by_projection_plain(*a1, **kw1))
+    kind, K8, s, row, sf, kw = run["rec"]["merge_call"]
+    sg, ng = fuse.merge_duplicates_at_keyframe(kind, K8, s, row, sf, **kw)
+    s_cpu = dataclasses.replace(s, **{f.name: getattr(s, f.name).cpu()
+                                      for f in dataclasses.fields(s)})
+    sc, nc = fuse.merge_duplicates_at_keyframe(kind, K8.cpu(), s_cpu, row, sf.cpu(), **kw)
+    same = (torch.equal(sg.kf_feat_lm.cpu(), sc.kf_feat_lm)
+            and torch.equal(sg.lm_valid.cpu(), sc.lm_valid) and int(ng) == int(nc))
+    check(same, f"merge_duplicates_at_keyframe card vs CPU: pairs {int(ng)} vs {int(nc)}, "
+          f"kf_feat_lm equal {torch.equal(sg.kf_feat_lm.cpu(), sc.kf_feat_lm)}, lm_valid equal "
+          f"{torch.equal(sg.lm_valid.cpu(), sc.lm_valid)}")
+    print(f"[loop] {gpu}: K1 at the merge site == plain (N={a1[0].shape[0]}, M={a1[4].shape[0]},"
+          f" {int(a1[3].sum())} projected, {n_ok} matched); merge_duplicates_at_keyframe on "
+          f"keyframe {row}: card == CPU plain ({int(ng)} duplicate pairs)")
+    return err, int(ng)
+
+
+def phase_loop(dev, gpu):
+    """Phase 11: relocalization, loop closing and map merging at full width
+    (reloc-full, loop-full, merge-full) with their gates, K1 at the merge
+    site and K2 at the relocalization site against their plain versions on
+    the sessions' inputs, the merge on the card against the CPU plain path,
+    the timings, and System.run_global_ba on the loop map."""
+    import statistics
+
+    import torch
+
+    from orb_slam3_tpu_torch.frontend import match_kernel as mk
+    from orb_slam3_tpu_torch.tracking import pose_kernel as pk
+
+    med = lambda v: statistics.median(v) if v else None  # noqa: E731
+    t0 = time.perf_counter()
+    sessions = loop_sessions()
+    print(f"[loop] frames and vocabulary views rendered in {time.perf_counter() - t0:.1f} s")
+    runs, failed, out = {}, [], {"sessions": {}}
+    for name, frames, R_gt, t_gt, fields, views, until in sessions:
+        t_s = time.perf_counter()
+        run = runs[name] = run_loop_session(dev, name, frames, R_gt, t_gt, fields, views, until)
+        f, summary = loop_gates(name, run)
+        failed += f
+        fr, s = run["rec"]["frames"], run["samples"]
+        plain = [x["ms"] for x in fr[1:] if not x["kf"]]
+        kf = [x["ms"] for x in fr[1:] if x["kf"]]
+        timing = dict(
+            frame_ms=med(plain), keyframe_frame_ms=med(kf), keyframe_frames=len(kf),
+            on_keyframe_ms=med(s.get("loop.on_keyframe", [])),
+            on_keyframe_query_ms=med(s.get("loop.query", [])),
+            on_keyframe_cascade_ms=med(s.get("loop.cascade", [])),
+            correction_ms={k.split(".")[-1]: s[k] for k in (
+                "loop.correct.transport", "loop.correct.essential_graph",
+                "loop.correct.fuse_window") if k in s},
+            reloc_attempt_ms=[r["ms"] for r in run["rec"]["reloc"]],
+            stages={k: med(s.get(k, [])) for k in (
+                "orb_extraction", "track.stereo_depth", "track.fused_step", "map.pre",
+                "map.local_ba", "map.culling")})
+        print(f"[loop timing] {gpu}: {name}: frame without a keyframe median {timing['frame_ms']}"
+              f" ms over {len(plain)}; keyframe frame median {timing['keyframe_frame_ms']} ms "
+              f"over {len(kf)}; on_keyframe median {timing['on_keyframe_ms']} ms (query "
+              f"{timing['on_keyframe_query_ms']}, cascade {timing['on_keyframe_cascade_ms']} "
+              f"per call); correction parts {timing['correction_ms']}; relocalization attempts "
+              f"{timing['reloc_attempt_ms']} ms; stage medians {timing['stages']}; launches "
+              f"{run['launches']}")
+        out["sessions"][name] = dict(summary, launches=run["launches"], wall_s=run["wall_s"],
+                                     **timing)
+        print(f"[loop {name}] session with its gates: {time.perf_counter() - t_s:.1f} s")
+    loop, reloc, merge = runs["loop-full"], runs["reloc-full"], runs["merge-full"]
+    for nm, r in (("loop-full", loop), ("merge-full", merge)):
+        check(r["launches"]["K1 merge"] >= 1, f"{nm}: K1 never launched at the merge site")
+    check(reloc["launches"]["K2 reloc"] >= 1, "reloc-full: K2 never launched at the reloc site")
+    err_k1, n_pairs = merge_site_checks(loop, gpu)
+    a2, kw2 = reloc["rec"]["k2_reloc"]
+    err_k2 = compare_k2(pk.pose_ba(*a2, **kw2), pk.pose_ba_plain(*a2, **kw2),
+                        "relocalization site")
+    print(f"[loop] {gpu}: K2 at the relocalization site vs plain (N={a2[3].shape[1]}, "
+          f"{int(a2[6].sum())} valid rows): max |err| {err_k2:.3g}")
+    # global BA on the loop map, synchronously, after the session
+    sys_ = loop["system"]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sys_.run_global_ba()
+    torch.cuda.synchronize()
+    gba_ms = (time.perf_counter() - t1) * 1e3
+    out["run_global_ba_ms"] = gba_ms
+    out["run_global_ba_keyframes"] = int(sys_.tracker.map.kf_valid.sum())
+    print(f"[loop timing] {gpu}: System.run_global_ba on the loop map "
+          f"({out['run_global_ba_keyframes']} keyframes, 10 iterations): {gba_ms:.1f} ms")
+    for r in runs.values():
+        r["system"].shutdown()
+    rows = {}
+    a1, kw1 = loop["rec"]["k1_merge"]
+    for kname, fn, plain, bound, N, prof_name in (
+            ("K1_merge", lambda: mk.search_by_projection_kernel(*a1, **kw1),
+             lambda: mk.search_by_projection_plain(*a1, **kw1), k1_bound(a1), a1[0].shape[0],
+             "match_kernel"),
+            ("K2_reloc", lambda: pk.pose_ba(*a2, **kw2), lambda: pk.pose_ba_plain(*a2, **kw2),
+             k2_bound(a2, kw2), a2[3].shape[1], "pose_kernel")):
+        b_ms, b_by = bound_ms(*bound)
+        dev_ms, dev_by = device_kernel_ms(fn, prof_name)
+        rows[kname] = dict(N=int(N), ms=time_ms(fn, runs=20), device_ms=dev_ms,
+                           device_ms_by=dev_by, plain_ms=time_ms(plain, runs=3, warmup=1),
+                           bound_ms=b_ms, bound_by=b_by)
+        print(f"[loop timing] {gpu}: {kname} (N={N}): {rows[kname]['ms']:.4f} ms per call, "
+              f"device {dev_ms:.5f} ms ({dev_by}), plain {rows[kname]['plain_ms']:.3f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by})")
+    launches = {k: sum(r["launches"].get(k, 0) for r in runs.values())
+                for k in ("K1", "K2", "K1 merge", "K1 fuse", "K2 reloc")}
+    out.update(failed=failed, launches=launches, call_sites=rows, merge_pairs=n_pairs,
+               err={"K1": err_k1, "K2": err_k2})
+    return out
+
+
 def main():
     import torch
 
@@ -2177,6 +2576,9 @@ def main():
     t10 = time.perf_counter()
     settings = phase_settings(dev, gpu)
     print(f"[phase] phase 10 took {time.perf_counter() - t10:.1f} s")
+    t11 = time.perf_counter()
+    loop = phase_loop(dev, gpu)
+    print(f"[phase] phase 11 took {time.perf_counter() - t11:.1f} s")
     # each kernel's row: its launches on the five main paths (and by call
     # site), the bootstrap's numbers at N = lmax, K1's at the fuse, the
     # depth sessions' and the settings sessions' call sites
@@ -2187,26 +2589,33 @@ def main():
                                    "bootstrap": boot["launches"][name],
                                    "slam": slam["launches"][name],
                                    "slam-depth": depth["launches"][name],
-                                   "slam-settings": settings["launches"][name]}
+                                   "slam-settings": settings["launches"][name],
+                                   "slam-loop": loop["launches"][name]}
         row["launches"] = sum(row["launches_by_path"].values())
         row["max_abs_err"] = row["max_err"] = max(row["max_abs_err"], boot["err"][name],
-                                                  depth["err"][name], settings["err"][name])
+                                                  depth["err"][name], settings["err"][name],
+                                                  loop["err"][name])
         row["bootstrap"] = b
     k1, k2 = report["kernels"]
-    fuse_k1 = slam["fuse_k1"] + depth["launches"]["K1 fuse"] + settings["launches"]["K1 fuse"]
-    right_k1 = settings["launches"]["K1 right"]
+    fuse_k1 = (slam["fuse_k1"] + depth["launches"]["K1 fuse"] + settings["launches"]["K1 fuse"]
+               + loop["launches"]["K1 fuse"])
+    right_k1, merge_k1 = settings["launches"]["K1 right"], loop["launches"]["K1 merge"]
     k1["launches_by_site"] = {
         "track (match_local_map)": k1["launches"] - fuse_k1 - depth["launches"]["K1 vo"]
-        - right_k1,
+        - right_k1 - merge_k1,
         "fuse (fuse_into_keyframe)": fuse_k1,
         "localization VO points": depth["launches"]["K1 vo"],
-        "right camera (fisheye two-camera stage)": right_k1}
+        "right camera (fisheye two-camera stage)": right_k1,
+        "merge (merge_duplicates_at_keyframe)": merge_k1}
     k1["fuse"] = slam["k1_fuse"]
     k1["vo"] = depth["call_sites"]["K1_vo"]
     k1["right_camera"] = settings["call_sites"]["K1_right"]
     k2["launches_by_site"] = {"stereo template (depth tracking)": depth["launches"]["K2_stereo"]
                               + settings["launches"]["K2_stereo"],
-                              "mono over map + VO rows": depth["launches"]["K2 loc"]}
+                              "mono over map + VO rows": depth["launches"]["K2 loc"],
+                              "relocalization (after MLPnP)": loop["launches"]["K2 reloc"]}
+    k1["merge"] = loop["call_sites"]["K1_merge"]
+    k2["reloc"] = loop["call_sites"]["K2_reloc"]
     k2["stereo"] = depth["call_sites"]["K2_stereo"]
     k2["localization"] = depth["call_sites"]["K2_loc"]
     k2["rectified"] = settings["call_sites"]["K2_rectified"]
@@ -2214,8 +2623,10 @@ def main():
     report["slam"] = {k: v for k, v in slam.items() if k != "k1_fuse"}
     report["slam_depth"] = {k: v for k, v in depth.items() if k != "call_sites"}
     report["slam_settings"] = {k: v for k, v in settings.items() if k != "call_sites"}
+    report["slam_loop"] = {k: v for k, v in loop.items() if k != "call_sites"}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    failed = boot["failed"] + slam["failed"] + depth["failed"] + settings["failed"]
+    failed = (boot["failed"] + slam["failed"] + depth["failed"] + settings["failed"]
+              + loop["failed"])
     if failed:
         print(json.dumps(report, default=str))
         raise SmokeFailure(f"gates failed: {failed}")

@@ -7,8 +7,10 @@ frames with `track_monocular`, `track_stereo` or `track_rgbd` as the
 sensor asks (a legacy stereo file's rectification blocks remap both images
 first, and `Camera.newWidth/newHeight` resizes every image); switch
 localization-only mode on and off, query the tracking state, reset, export
-trajectories. Each entry point the JAX façade has beyond these raises
-NotImplementedError naming the slice (ROADMAP Queue 1 item) that brings it.
+trajectories. With a vocabulary the session relocalizes, closes loops and
+merges maps; `run_global_ba` optimizes the active map. Each entry point the
+JAX façade has beyond these raises NotImplementedError naming the slice
+(ROADMAP Queue 1 item) that brings it.
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ from . import settings as settings_mod
 from . import trajectory
 
 _INERTIAL = "inertial slice (ROADMAP Queue 1 item 13)"
-_PLACE = "place-recognition and loop-closing slice (item 14)"
 _API = "remaining-API slice (item 15)"
 
 
@@ -50,7 +51,9 @@ class System:
         the default, must name the same one); the camera tensor's device is
         the session's, or `device` when the camera is not a tensor. A
         config, when given, is used and the settings file is not read, as
-        in the JAX façade."""
+        in the JAX façade. vocabulary: a `place.vocab.Vocabulary`, which
+        attaches the loop closer (relocalization, loop closing, map
+        merging)."""
         self.rectifier = None
         self._resize_hw = None
         if config is None:
@@ -70,11 +73,12 @@ class System:
             _not_ported(f"sensor {sensor!r} / {config.sensor!r}", _INERTIAL)
         if sensor != self.MONOCULAR and sensor != config.sensor:
             raise ValueError(f"sensor {sensor!r} but the config's is {config.sensor!r}")
-        if vocabulary is not None:
-            _not_ported("a vocabulary (relocalization, loop closing)", _PLACE)
         if atlas_path is not None:
             _not_ported("loading an Atlas (api/checkpoint.py)", _API)
         self.tracker = trk.Tracker(config, device=device)
+        self.vocabulary = vocabulary
+        if vocabulary is not None:
+            self.tracker.attach_loop_closer(vocabulary)
 
     # ------------------------------------------------------------------
     def _expect(self, sensor: str, call: str):
@@ -158,7 +162,10 @@ class System:
 
     def reset(self):
         """System::Reset: drop everything and start a fresh Atlas."""
+        self.tracker.shutdown()
         self.tracker = trk.Tracker(self.tracker.cfg)
+        if self.vocabulary is not None:
+            self.tracker.attach_loop_closer(self.vocabulary)
 
     def change_dataset(self):
         """System::ChangeDataset: store the active map and restart tracking
@@ -189,7 +196,15 @@ class System:
                             s.kf_R.cpu().numpy()[kv], s.kf_t.cpu().numpy()[kv])
 
     def run_global_ba(self, num_iters: int = 10):
-        _not_ported("global BA", _PLACE)
+        """Synchronous full bundle adjustment of the active map
+        (Optimizer::GlobalBundleAdjustemnt, `Optimizer.cc:52`). The tracker
+        also starts one in a side thread after a loop correction."""
+        from ..mapping.global_ba import GlobalBARunner
+
+        self.tracker.sync_mapping()
+        runner = GlobalBARunner(self.tracker.cfg.K, self.tracker.cfg.kind, num_iters=num_iters)
+        self.tracker.map = runner.run(self.tracker.map)
+        self.tracker._map_version += 1
 
     def save_atlas(self, path: str):
         _not_ported("saving the Atlas (api/checkpoint.py)", _API)
@@ -204,5 +219,6 @@ class System:
         _not_ported("the live viewer (api/viewer.py)", _API)
 
     def shutdown(self):
-        """System::Shutdown (`System.cc:515`). Mapping runs on the tracking
-        thread, so no mapper or global-BA thread is left to stop."""
+        """System::Shutdown (`System.cc:515`): stops a background global BA.
+        Mapping runs on the tracking thread, so no mapper is left to stop."""
+        self.tracker.shutdown()

@@ -141,3 +141,23 @@ def map_state_arrays(s) -> dict:
     for the JAX MapState's constructor."""
     return {f.name: getattr(s, f.name).detach().cpu().numpy()
             for f in dataclasses.fields(s)}
+
+
+def vocabulary(voc, device=None):
+    """A JAX Vocabulary (centers [n_total, 32], idf weights [n_words],
+    branching, depth) -> the port's place.vocab.Vocabulary."""
+    from .place import vocab
+
+    dev = device_mod.resolve(device)
+    return vocab.Vocabulary(centers=_u8(voc.centers, dev), weights=_f32(voc.weights, dev),
+                            branching=int(voc.branching), depth=int(voc.depth))
+
+
+def keyframe_db(db, device=None):
+    """A JAX KeyframeDB (sparse BoW pairs per keyframe row) -> the port's
+    place.recognition.KeyframeDB."""
+    from .place import recognition
+
+    dev = device_mod.resolve(device)
+    return recognition.KeyframeDB(ids=_i32(db.ids, dev), vals=_f32(db.vals, dev),
+                                  valid=_bool(db.valid, dev), n_words=int(db.n_words))

@@ -36,6 +36,12 @@ tests/synthetic_scene.render_kb8 without OpenCV) or `radtan_rays` (the raw
 pixels of a pinhole camera with rad-tan distortion; `render_radtan`);
 `kb8_stereo_settings` and `euroc_legacy_settings` write the settings files
 of those two rigs.
+
+With a vocabulary (`slam(..., vocabulary=...)`, trained in the run by
+`train_vocabulary` on held-out views) the session relocalizes, closes loops
+and merges maps. `room_scene` and `loop_trajectory` are the textured room
+and the closed circle of tests/synthetic_scene.py in numpy (`QuadScene`:
+ray-cast quads, 5x5 blur and bilinear sampling without OpenCV).
 """
 
 from __future__ import annotations
@@ -275,7 +281,7 @@ def track_sequence(cfg, init, feats, timer=tracker.no_timer):
 
 
 def slam(frames, cfg=None, device=None, localize_from=None, timer=tracker.no_timer,
-         settings_path=None, sensor="mono"):
+         settings_path=None, sensor="mono", vocabulary=None, until=None):
     """SLAM over `frames`, 0.05 s apart, through the System façade on
     `device` (default CUDA), routed on the session's sensor: track_monocular
     ("mono", each frame an [H, W] image), track_stereo ("stereo", each frame
@@ -287,17 +293,20 @@ def slam(frames, cfg=None, device=None, localize_from=None, timer=tracker.no_tim
     paused). The session is System(settings_path, sensor) when a settings
     file is given, else System(config=cfg), `cfg` defaulting to
     tracker_config() (mono, 752x480, OrbConfig(1000, 8), kmax 128, lmax
-    8192, window 8). `timer(name)` is a context manager wrapped around each
-    frame ("frame"). Returns the System, whose tracker holds the map and the
-    trajectory."""
+    8192, window 8). With `vocabulary` the session relocalizes, closes loops
+    and merges maps. `timer(name)` is a context manager wrapped around each
+    frame ("frame"); the session stops after the first frame on which
+    `until(system)` holds. Returns the System, whose tracker holds the map
+    and the trajectory."""
     from .api.system import System
 
     if settings_path is not None:
         if cfg is not None:
             raise ValueError("pass cfg or settings_path, not both")
-        sys_ = System(settings_path, sensor=sensor, device=device)
+        sys_ = System(settings_path, sensor=sensor, vocabulary=vocabulary, device=device)
     else:
-        sys_ = System(config=cfg if cfg is not None else tracker_config(device), device=device)
+        sys_ = System(config=cfg if cfg is not None else tracker_config(device),
+                      vocabulary=vocabulary, device=device)
     track = {"mono": lambda f, ts: sys_.track_monocular(f, ts),
              "stereo": lambda f, ts: sys_.track_stereo(f[0], f[1], ts),
              "rgbd": lambda f, ts: sys_.track_rgbd(f[0], f[1], ts)}[sys_.tracker.base_sensor]
@@ -306,6 +315,8 @@ def slam(frames, cfg=None, device=None, localize_from=None, timer=tracker.no_tim
             sys_.activate_localization_mode()
         with timer("frame"):
             track(frame, 0.05 * i)
+        if until is not None and until(sys_):
+            break
     sys_.tracker.settle()
     return sys_
 
@@ -410,18 +421,21 @@ ORBextractor.minThFAST: 7
 """
 
 
-def _blur3(img, sigma: float = 0.8):
-    """3x3 Gaussian with reflect-101 borders (cv2.GaussianBlur((3, 3), sigma))."""
-    w = np.exp(-np.array([1.0, 0.0, 1.0]) / (2.0 * sigma * sigma))
+def _blur(img, ksize: int = 3, sigma: float = 0.8):
+    """ksize x ksize Gaussian with reflect-101 borders
+    (cv2.GaussianBlur((ksize, ksize), sigma)), separable, in float32."""
+    r = ksize // 2
+    w = np.exp(-np.arange(-r, r + 1, dtype=np.float64) ** 2 / (2.0 * sigma * sigma))
     w = (w / w.sum()).astype(np.float32)
-    p = np.pad(img, 1, mode="reflect")
-    rows = w[0] * p[:, :-2] + w[1] * p[:, 1:-1] + w[2] * p[:, 2:]
-    return w[0] * rows[:-2] + w[1] * rows[1:-1] + w[2] * rows[2:]
+    p = np.pad(img, r, mode="reflect")
+    h, wd = img.shape
+    rows = sum(w[k] * p[:, k:k + wd] for k in range(ksize))
+    return sum(w[k] * rows[k:k + h] for k in range(ksize))
 
 
 def plane_texture(seed: int, size: int = 1024, blobs: int = 4000):
     """Blob texture of a scene plane, drawn like tests/synthetic_scene.py's
-    make_texture (same draws), blurred by _blur3."""
+    make_texture (same draws), blurred by the 3x3 Gaussian."""
     rng = np.random.default_rng(seed)
     tex = np.zeros((size, size), np.float32)
     xs = rng.integers(0, size - 14, blobs)
@@ -429,7 +443,7 @@ def plane_texture(seed: int, size: int = 1024, blobs: int = 4000):
     for x, y in zip(xs, ys):
         w, h = rng.integers(4, 14, 2)
         tex[y:y + h, x:x + w] = rng.uniform(40, 255)
-    return _blur3(tex)
+    return _blur(tex)
 
 
 def plane_scene(seed: int = 0):
@@ -545,16 +559,21 @@ def _render(planes, rays, R_cw, t_cw, with_depth: bool):
     for pl, lam, tu, tv, inside in _plane_hits(planes, rays, R_cw, t_cw):
         if with_depth:
             depth = np.where(inside, lam.astype(np.float32), depth)
-        tex = pl["tex"]
-        size = tex.shape[0]
-        u0 = np.clip(np.floor(tu), 0, size - 2).astype(np.int64)
-        v0 = np.clip(np.floor(tv), 0, size - 2).astype(np.int64)
-        a = np.clip(tu - u0, 0.0, 1.0)
-        b = np.clip(tv - v0, 0.0, 1.0)
-        val = ((1 - a) * (1 - b) * tex[v0, u0] + a * (1 - b) * tex[v0, u0 + 1]
-               + (1 - a) * b * tex[v0 + 1, u0] + a * b * tex[v0 + 1, u0 + 1])
-        img = np.where(inside, val.astype(np.float32), img)
+        img = np.where(inside, _bilinear(pl["tex"], tu, tv), img)
     return img, depth
+
+
+def _bilinear(tex, tu, tv):
+    """Bilinear samples of the square texture `tex` at (tu, tv) (texel
+    units, clipped to the texture), float32."""
+    size = tex.shape[0]
+    u0 = np.clip(np.floor(tu), 0, size - 2).astype(np.int64)
+    v0 = np.clip(np.floor(tv), 0, size - 2).astype(np.int64)
+    a = np.clip(tu - u0, 0.0, 1.0)
+    b = np.clip(tv - v0, 0.0, 1.0)
+    val = ((1 - a) * (1 - b) * tex[v0, u0] + a * (1 - b) * tex[v0, u0 + 1]
+           + (1 - a) * b * tex[v0 + 1, u0] + a * b * tex[v0 + 1, u0 + 1])
+    return val.astype(np.float32)
 
 
 def render_stereo(planes, K, img_wh, R_cw, t_cw, baseline: float):
@@ -585,3 +604,171 @@ def plane_sequence(n_frames: int, img_wh=FULL_WH, K=FULL_K, seed: int = 0):
     R, t = orbit_trajectory(n_frames)
     frames = [render_planes(planes, K, img_wh, R[i], t[i]) for i in range(n_frames)]
     return frames, R, t, planes
+
+
+# ---------------------------------------------------------------------------
+# The room scene and the closed loop (tests/synthetic_scene.py, numpy only)
+# ---------------------------------------------------------------------------
+
+class QuadScene:
+    """Textured quads (dicts with p0, ex, ey, tex) rendered by casting each
+    pixel's ray and keeping the nearest hit, with a per-render exposure
+    jitter and noise drawn from one numpy generator (seed + 991), as
+    tests/synthetic_scene.QuadScene does; textures sampled bilinearly. The
+    ray casting runs in float64 torch ops on `device` (default CUDA); the
+    images come back as float32 numpy arrays."""
+
+    def __init__(self, K, img_wh=(512, 384), quads=(), exposure_jitter=0.0, noise=0.0,
+                 seed=0, device=None):
+        self.device = device_mod.resolve(device)
+        self.img_wh = tuple(img_wh)
+        self.quads = list(quads)
+        self.exposure_jitter = exposure_jitter
+        self.noise = noise
+        self._rng = np.random.default_rng(seed + 991)
+        self._rays = torch.from_numpy(_pinhole_rays(np.asarray(K, np.float64),
+                                                    self.img_wh)).to(self.device)
+        self._tex = {}
+
+    def _texture(self, j):
+        tex = self.quads[j]["tex"]
+        hit = self._tex.get(j)
+        if hit is None or hit[0] is not tex:
+            hit = self._tex[j] = (tex, torch.from_numpy(np.ascontiguousarray(tex)).to(self.device))
+        return hit[1]
+
+    def _cast(self, R_cw, t_cw):
+        f64 = dict(dtype=torch.float64, device=self.device)
+        w, h = self.img_wh
+        R_wc = torch.as_tensor(np.asarray(R_cw, np.float64).T, **f64)
+        c = -R_wc @ torch.as_tensor(np.asarray(t_cw, np.float64), **f64)
+        rays_w = self._rays @ R_wc.T
+        img = torch.zeros((h, w), dtype=torch.float32, device=self.device)
+        depth = torch.full((h, w), float("inf"), dtype=torch.float32, device=self.device)
+        for j, q in enumerate(self.quads):
+            p0, ex, ey = (torch.as_tensor(q[k], **f64) for k in ("p0", "ex", "ey"))
+            n = torch.linalg.cross(ex, ey)
+            n = n / torch.linalg.norm(n)
+            denom = rays_w @ n
+            denom = torch.where(denom.abs() < 1e-9, 1e-9, denom)
+            lam = ((p0 - c) @ n) / denom
+            d = c + lam[..., None] * rays_w - p0
+            tx = d @ ex / (ex @ ex)
+            ty = d @ ey / (ey @ ey)
+            inside = ((lam > 0.05) & (tx >= 0) & (tx <= 1) & (ty >= 0) & (ty <= 1)
+                      & (lam < depth))
+            tex = self._texture(j)
+            size = tex.shape[0]
+            tu = (tx * (size - 1)).to(torch.float32)
+            tv = (ty * (size - 1)).to(torch.float32)
+            u0 = torch.clamp(torch.floor(tu), 0, size - 2).long()
+            v0 = torch.clamp(torch.floor(tv), 0, size - 2).long()
+            a_ = torch.clamp(tu - u0, 0.0, 1.0).to(torch.float64)
+            b_ = torch.clamp(tv - v0, 0.0, 1.0).to(torch.float64)
+            val = ((1 - a_) * (1 - b_) * tex[v0, u0] + a_ * (1 - b_) * tex[v0, u0 + 1]
+                   + (1 - a_) * b_ * tex[v0 + 1, u0] + a_ * b_ * tex[v0 + 1, u0 + 1])
+            img = torch.where(inside, val.to(torch.float32), img)
+            depth = torch.where(inside, lam.to(torch.float32), depth)
+        depth = torch.where(torch.isfinite(depth), depth, 0.0)
+        return img.cpu().numpy(), depth.cpu().numpy()
+
+    def _photometric(self, img):
+        if self.exposure_jitter > 0:
+            img = img * (1.0 + self._rng.uniform(-self.exposure_jitter, self.exposure_jitter))
+        if self.noise > 0:
+            img = img + self._rng.normal(0.0, self.noise, img.shape)
+        return np.clip(img, 0, 255).astype(np.float32)
+
+    def render(self, R_cw, t_cw):
+        return self._photometric(self._cast(R_cw, t_cw)[0])
+
+    def render_with_depth(self, R_cw, t_cw):
+        img, depth = self._cast(R_cw, t_cw)
+        return self._photometric(img), depth
+
+
+def plane_quads(planes):
+    """plane_scene's planes as QuadScene quads (each plane z = const over its
+    x / y range, the texture along x and y), so that QuadScene casts the
+    PlaneScene on a device: the near patches lie in front of the far plane
+    and apart from each other, so the nearest hit is the plane drawn last."""
+    return [dict(p0=np.array([pl["x0"], pl["y0"], pl["z"]]),
+                 ex=np.array([pl["x1"] - pl["x0"], 0.0, 0.0]),
+                 ey=np.array([0.0, pl["y1"] - pl["y0"], 0.0]), tex=pl["tex"]) for pl in planes]
+
+
+def room_scene(K, img_wh=(512, 384), half=6.0, wall_h=2.2, seed=0, exposure_jitter=0.0,
+               noise=0.0, smooth_texture=True, n_panels=10, device=None):
+    """tests/synthetic_scene.room_scene: a square room's four walls, floor
+    and ceiling plus a ring of free-standing panels facing its centre, each
+    with a blob texture (seed + its index; with smooth_texture a further
+    5x5 Gaussian of sigma 1.2). Cast on `device` (default CUDA)."""
+
+    def tex(j):
+        t = plane_texture(seed + j)
+        return _blur(t, 5, 1.2) if smooth_texture else t
+
+    S, H = half, wall_h
+    quads = [
+        dict(p0=np.array([-S, -H, S]), ex=np.array([2 * S, 0, 0]),
+             ey=np.array([0, 2 * H, 0]), tex=tex(1)),
+        dict(p0=np.array([S, -H, -S]), ex=np.array([-2 * S, 0, 0]),
+             ey=np.array([0, 2 * H, 0]), tex=tex(2)),
+        dict(p0=np.array([S, -H, S]), ex=np.array([0, 0, -2 * S]),
+             ey=np.array([0, 2 * H, 0]), tex=tex(3)),
+        dict(p0=np.array([-S, -H, -S]), ex=np.array([0, 0, 2 * S]),
+             ey=np.array([0, 2 * H, 0]), tex=tex(4)),
+        dict(p0=np.array([-S, H, -S]), ex=np.array([2 * S, 0, 0]),
+             ey=np.array([0, 0, 2 * S]), tex=tex(5)),
+        dict(p0=np.array([-S, -H, -S]), ex=np.array([2 * S, 0, 0]),
+             ey=np.array([0, 0, 2 * S]), tex=tex(6)),
+    ]
+    rng = np.random.default_rng(seed + 37)
+    for j in range(n_panels):
+        a = 2 * np.pi * (j + rng.uniform(-0.2, 0.2)) / max(n_panels, 1)
+        r = rng.uniform(0.55, 0.8) * S
+        cx, cz = r * np.sin(a), r * np.cos(a)
+        pw = rng.uniform(1.0, 1.8)
+        ph = rng.uniform(0.8, 1.4)
+        y0 = rng.uniform(-0.9, 0.2)
+        ex = np.array([np.cos(a), 0.0, -np.sin(a)]) * pw
+        ey = np.array([0.0, 1.0, 0.0]) * ph
+        quads.append(dict(p0=np.array([cx, y0, cz]) - 0.5 * ex, ex=ex, ey=ey,
+                          tex=tex(20 + j)))
+    return QuadScene(K, img_wh, quads, exposure_jitter=exposure_jitter, noise=noise,
+                     seed=seed, device=device)
+
+
+def loop_trajectory(n_frames=160, radius=1.6, bob=0.05, start_angle=0.0, loops=1.0):
+    """tests/synthetic_scene.loop_trajectory: a circle of `radius` in the
+    x-z plane looking radially outward; after `loops` revolutions the camera
+    sees the first wall again. Returns (R_cw [N,3,3], t_cw [N,3])."""
+    Rs, ts = [], []
+    for i in range(n_frames):
+        a = start_angle + 2 * np.pi * loops * i / n_frames
+        c = np.array([radius * np.sin(a), bob * np.sin(0.21 * i), radius * np.cos(a)])
+        zc = np.array([np.sin(a), 0.0, np.cos(a)])
+        yc = np.array([0.0, 1.0, 0.0])
+        xc = np.cross(yc, zc)
+        xc /= np.linalg.norm(xc)
+        R_cw = np.stack([xc, yc, zc], axis=1).T
+        Rs.append(R_cw)
+        ts.append(-R_cw @ c)
+    return np.stack(Rs), np.stack(ts)
+
+
+def train_vocabulary(frames, cfg, branching: int = 8, depth: int = 3, seed: int = 0):
+    """A vocabulary trained on the valid ORB descriptors of `frames` (held-
+    out views of the scene), extracted with cfg.orb on cfg.K's device: the
+    stand-in for the reference's offline ORBvoc, as the JAX tests train
+    theirs."""
+    from .place import vocab
+
+    dev = cfg.K.device
+    descs = []
+    for f in frames:
+        feats = orb.extract(torch.as_tensor(np.asarray(f), dtype=torch.float32, device=dev),
+                            cfg.orb)
+        descs.append(feats.descriptors[feats.valid].cpu().numpy())
+    return vocab.train(np.concatenate(descs), branching=branching, depth=depth, seed=seed,
+                       device=dev)

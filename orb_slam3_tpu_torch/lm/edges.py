@@ -6,8 +6,9 @@ left-multiplicative update Tcw <- exp(dxi) Tcw (`se3quat.h::oplusImpl`);
 landmarks are Euclidean {"x": [N,3]}. Residuals are written for one edge
 and batched by the engine. The mono and stereo reprojection edges, full and
 pose-only, and the right-camera (ToBody) edges of a non-rectified stereo
-rig are here (`OptimizableTypes.cpp`, `G2oTypes.cc`); the Sim3,
-inertial and relative-pose residuals come with the slices that use them.
+rig are here (`OptimizableTypes.cpp`, `G2oTypes.cc`), with the Sim3
+vertex, the relative SE3 / Sim3 pose-graph edges and the Sim3 point edges
+of OptimizeSim3; the inertial residuals come with the inertial slice.
 """
 
 from __future__ import annotations
@@ -29,6 +30,14 @@ def point_retract(state, delta):
     return {"x": state["x"] + delta}
 
 
+def sim3_retract(state, delta):
+    """S <- exp(delta) S, delta = (rho, phi, sigma) (g2o VertexSim3Expmap,
+    `types_seven_dof_expmap.h`)."""
+    dR, dt, ds = lie.sim3_exp(delta)
+    R, t, s = lie.sim3_mul(dR, dt, ds, state["R"], state["t"], state["s"])
+    return {"R": R, "t": t, "s": s}
+
+
 def make_pose_block(R, t, fixed):
     return VertexBlock(state={"R": R, "t": t}, fixed=fixed, tangent_dim=6,
                        retract=se3_retract)
@@ -36,6 +45,11 @@ def make_pose_block(R, t, fixed):
 
 def make_point_block(x, fixed):
     return VertexBlock(state={"x": x}, fixed=fixed, tangent_dim=3, retract=point_retract)
+
+
+def make_sim3_block(R, t, s, fixed):
+    return VertexBlock(state={"R": R, "t": t, "s": s}, fixed=fixed, tangent_dim=7,
+                       retract=sim3_retract)
 
 
 def make_mono_residual(kind: int):
@@ -107,5 +121,37 @@ def make_stereo_pose_only_residual(kind: int):
 
     def residual(pose, data):
         return _stereo(kind, lie.se3_apply(pose["R"], pose["t"], data["Xw"]), data)
+
+    return residual
+
+
+def relative_se3_residual(pose_i, pose_j, data):
+    """log(T_ji_meas T_i T_j^-1), 6-dim: poses are Tcw and the measured
+    constraint is T_ji = T_j T_i^-1."""
+    Rj_inv, tj_inv = lie.se3_inv(pose_j["R"], pose_j["t"])
+    Ra, ta = lie.se3_mul(pose_i["R"], pose_i["t"], Rj_inv, tj_inv)
+    Re, te = lie.se3_mul(data["R_ji"], data["t_ji"], Ra, ta)
+    return lie.se3_log(Re, te)
+
+
+def relative_sim3_residual(sim_i, sim_j, data):
+    """7-dim essential-graph edge log(S_ji_meas S_i S_j^-1) (g2o EdgeSim3,
+    OptimizeEssentialGraph, `Optimizer.cc:1501-1782`)."""
+    Rj_i, tj_i, sj_i = lie.sim3_inv(sim_j["R"], sim_j["t"], sim_j["s"])
+    Ra, ta, sa = lie.sim3_mul(sim_i["R"], sim_i["t"], sim_i["s"], Rj_i, tj_i, sj_i)
+    Re, te, se = lie.sim3_mul(data["R_ji"], data["t_ji"], data["s_ji"], Ra, ta, sa)
+    return lie.sim3_log(Re, te, se)
+
+
+def make_sim3_point_residual(kind: int, inverse: bool):
+    """OptimizeSim3's edges (`Optimizer.cc:2115`): the other keyframe's
+    matched point, fixed in its camera frame, projected through S12 (or
+    S12^-1 with `inverse`). data = {"uv": [2], "K": [8], "Xc": [3]}."""
+
+    def residual(sim, data):
+        R, t, s = sim["R"], sim["t"], sim["s"]
+        if inverse:
+            R, t, s = lie.sim3_inv(R, t, s)
+        return data["uv"] - cam.project(kind, data["K"], lie.sim3_apply(R, t, s, data["Xc"]))
 
     return residual

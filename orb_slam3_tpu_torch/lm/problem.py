@@ -20,6 +20,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..ops import robust
+from ..utils.threads import FORWARD_AD
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,5 +121,6 @@ def linearize_edge(problem: Problem, edge: EdgeBatch):
     zeros = tuple(torch.zeros((edge.num, b.tangent_dim), dtype=torch.float32, device=dev)
                   for b in blocks)
     r = vmap(edge.residual)(*states, edge.data)
-    jacs = vmap(jacfwd(with_deltas, argnums=0))(zeros, *states, edge.data)
+    with FORWARD_AD:
+        jacs = vmap(jacfwd(with_deltas, argnums=0))(zeros, *states, edge.data)
     return r, jacs

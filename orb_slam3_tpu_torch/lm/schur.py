@@ -32,6 +32,7 @@ from torch.func import jacfwd, vmap
 
 from ..ops import robust
 from ..ops.scatter import add_at
+from ..utils.threads import FORWARD_AD
 from . import dense
 from .problem import EdgeBatch, Problem, VertexBlock, apply_info, gather_state, total_cost
 
@@ -107,7 +108,8 @@ def _linearize_obs(p: BAProblem):
     zc = torch.zeros((E, p.cams.tangent_dim), dtype=torch.float32, device=dev)
     zx = torch.zeros((E, 3), dtype=torch.float32, device=dev)
     r = vmap(p.residual)(cam_states, X, p.obs_data)
-    Jc, Jl = vmap(jacfwd(f, argnums=(0, 1)))(zc, zx, cam_states, X, p.obs_data)
+    with FORWARD_AD:
+        Jc, Jl = vmap(jacfwd(f, argnums=(0, 1)))(zc, zx, cam_states, X, p.obs_data)
     return r, Jc, Jl
 
 

@@ -6,7 +6,10 @@ Twists are ordered (rho, phi) = (translation, rotation) like Sophus; the
 visual edges' left-multiplicative update is `se3_lplus`, the inertial
 vertices' right-multiplicative one `se3_rplus`. Small-angle branches use the
 same guarded formulas as the JAX package so both give the same f32 values.
-Sim(3) and quaternions arrive with the slices that need them.
+Sim(3) is (R, t, s) acting as X -> s R X + t (g2o `sim3.h`); its scalar
+arithmetic runs on [..., 1] slices, as `_theta` does, so that the Sim3
+edges differentiate with f32 tangents under jacfwd. Quaternions are
+(x, y, z, w) with w >= 0.
 """
 
 from __future__ import annotations
@@ -80,22 +83,21 @@ def so3_log(R):
 
     Generic branch theta / (2 sin theta) * vee(R - R^T) with the angle from
     atan2; near pi (cos < -0.9) the axis comes from (R + R^T)/2 - cos I =
-    (1 - cos) a a^T and the sign from the skew part.
+    (1 - cos) a a^T and the sign from the skew part. The angle terms are
+    [..., 1] slices (see `_theta`): Sim3 edges differentiate through it.
     """
-    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    trace = (R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2])[..., None]
     cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
     skew = vee(R - R.transpose(-1, -2))
-    ss = torch.sum(skew * skew, dim=-1)
+    ss = torch.sum(skew * skew, dim=-1, keepdim=True)
     sin_t = 0.5 * torch.sqrt(ss + 1e-24)
     theta = torch.atan2(sin_t, cos_t)
 
     small_s, sin_s = _safe(sin_t, 1e-6)
-    w_generic = skew * torch.where(
-        small_s, 0.5 + theta * theta / 12.0, theta / (2.0 * sin_s)
-    )[..., None]
+    w_generic = skew * torch.where(small_s, 0.5 + theta * theta / 12.0, theta / (2.0 * sin_s))
 
     S = (R + R.transpose(-1, -2)) * 0.5
-    M = S - cos_t[..., None, None] * _eye_like(R)
+    M = S - cos_t[..., None] * _eye_like(R)
     diag = torch.stack([M[..., 0, 0], M[..., 1, 1], M[..., 2, 2]], dim=-1)
     k = torch.argmax(diag, dim=-1)
     idx = k[..., None, None].expand(*k.shape, 1, 3)
@@ -105,10 +107,9 @@ def so3_log(R):
     theta_pi = math.pi - torch.asin(torch.clamp(sin_t, 0.0, 1.0))
     dot = torch.sum(skew * axis, dim=-1, keepdim=True)
     sign = torch.where(dot < 0.0, -torch.ones_like(dot), torch.ones_like(dot))
-    w_pi = axis * sign * theta_pi[..., None]
+    w_pi = axis * sign * theta_pi
 
-    near_pi = cos_t < -0.9
-    return torch.where(near_pi[..., None], w_pi, w_generic)
+    return torch.where(cos_t < -0.9, w_pi, w_generic)
 
 
 def so3_left_jacobian(w):
@@ -189,3 +190,141 @@ def se3_lplus(R, t, dxi):
     """Left-multiplicative update T <- exp(dxi) T (g2o SE3Quat::update)."""
     dR, dt = se3_exp(dxi)
     return se3_mul(dR, dt, R, t)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): (R, t, s) acting as X -> s R X + t
+# ---------------------------------------------------------------------------
+
+def sim3_mul(Ra, ta, sa, Rb, tb, sb):
+    """(Ra, ta, sa) * (Rb, tb, sb); scales are [...] tensors."""
+    t = sa[..., None] * (Ra @ tb[..., None])[..., 0] + ta
+    return Ra @ Rb, t, sa * sb
+
+
+def sim3_inv(R, t, s):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s[..., None]
+    return Rt, -s_inv * (Rt @ t[..., None])[..., 0], s_inv[..., 0]
+
+
+def sim3_apply(R, t, s, X):
+    return s[..., None] * (R @ X[..., None])[..., 0] + t
+
+
+def _sim3_V_closed(phi, sigma):
+    """V(phi, sigma) = int_0^1 exp(u sigma) exp(u hat(phi)) du in closed
+    form (the translation part of Sim(3) exp, Sophus `sim3.hpp`):
+    V = A I + B Om + C Om^2 with Om = hat(phi), theta = |phi| and
+      A = (e^sigma - 1) / sigma,
+      B = I_sin / theta, I_sin = (e^sg (sg sin th - th cos th) + th) / (sg^2 + th^2),
+      C = (A - I_cos) / theta^2, I_cos = (e^sg (sg cos th + th sin th) - sg) / (sg^2 + th^2),
+    with first-order Taylor branches for small sigma and the theta -> 0
+    limits. sigma is [..., 1]."""
+    theta, theta2, small_t, th_s, th2_s = _theta(phi)
+    small_s, sg_s = _safe(sigma, 1e-6)
+    es = torch.exp(sigma)
+    Om = hat(phi)
+    Om2 = Om @ Om
+
+    A = torch.where(small_s, 1.0 + sigma / 2.0 + sigma * sigma / 6.0, (es - 1.0) / sg_s)
+    sin_t, cos_t = torch.sin(th_s), torch.cos(th_s)
+    denom = sg_s * sg_s + th2_s
+    I_sin = (es * (sg_s * sin_t - th_s * cos_t) + th_s) / denom
+    I_cos = (es * (sg_s * cos_t + th_s * sin_t) - sg_s) / denom
+    B_gen = torch.where(
+        small_s,
+        (1.0 - cos_t) / th2_s + sigma * (sin_t - th_s * cos_t) / (th2_s * th_s),
+        I_sin / th_s,
+    )
+    # d/dsigma at sigma = 0 of C: (1/2 - (cos th + th sin th - 1) / th^2) / th^2
+    c_sigma = (0.5 * th2_s - (cos_t + th_s * sin_t - 1.0)) / (th2_s * th2_s)
+    C_gen = torch.where(
+        small_s,
+        (th_s - sin_t) / (th2_s * th_s) + sigma * c_sigma,
+        (A - I_cos) / th2_s,
+    )
+    B_small = torch.where(small_s, 0.5 + sigma / 3.0,
+                          (es * (sg_s - 1.0) + 1.0) / (sg_s * sg_s))
+    C_small = torch.where(small_s, 1.0 / 6.0 + sigma / 8.0,
+                          (es * (sg_s * sg_s - 2.0 * sg_s + 2.0) - 2.0) / (2.0 * sg_s ** 3))
+    B = torch.where(small_t, B_small, B_gen)
+    C = torch.where(small_t, C_small, C_gen)
+    return A[..., None] * _eye_like(Om) + B[..., None] * Om + C[..., None] * Om2
+
+
+def sim3_exp(xi):
+    """[..., 7] (rho, phi, sigma) -> (R, t, s)."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6:7]
+    R = so3_exp(phi)
+    V = _sim3_V_closed(phi, sigma)
+    t = (V @ rho[..., None])[..., 0]
+    return R, t, torch.exp(sigma)[..., 0]
+
+
+def _solve3(A, b):
+    """A^-1 b for [..., 3, 3] A by Cramer's rule (elementwise). Used where
+    jacfwd differentiates under vmap: torch.linalg.solve's forward-mode
+    derivative is wrong for every batch element after the first there
+    (torch 2.13)."""
+    c0, c1, c2 = A[..., :, 0], A[..., :, 1], A[..., :, 2]
+
+    def det(a, b_, c):
+        return torch.sum(a * torch.linalg.cross(b_, c), dim=-1, keepdim=True)
+
+    d = det(c0, c1, c2)
+    return torch.cat([det(b, c1, c2), det(c0, b, c2), det(c0, c1, b)], dim=-1) / d
+
+
+def sim3_log(R, t, s):
+    """(R, t, s) -> [..., 7] by a 3x3 solve against the closed-form V."""
+    phi = so3_log(R)
+    sigma = torch.log(s[..., None])
+    rho = _solve3(_sim3_V_closed(phi, sigma), t)
+    return torch.cat([rho, phi, sigma], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Quaternions (x, y, z, w): trajectory export (TUM format)
+# ---------------------------------------------------------------------------
+
+def rot_to_quat(R):
+    """[..., 3, 3] -> [..., 4] (x, y, z, w), w >= 0: of the four standard
+    constructions the one with the largest pivot (trace or a diagonal
+    entry)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def root(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12)) * 0.5
+
+    qw0 = root(1.0 + tr)
+    q0 = torch.stack([(m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0),
+                      (m10 - m01) / (4 * qw0), qw0], dim=-1)
+    qx1 = root(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([qx1, (m01 + m10) / (4 * qx1), (m02 + m20) / (4 * qx1),
+                      (m21 - m12) / (4 * qx1)], dim=-1)
+    qy2 = root(1.0 - m00 + m11 - m22)
+    q2 = torch.stack([(m01 + m10) / (4 * qy2), qy2, (m12 + m21) / (4 * qy2),
+                      (m02 - m20) / (4 * qy2)], dim=-1)
+    qz3 = root(1.0 - m00 - m11 + m22)
+    q3 = torch.stack([(m02 + m20) / (4 * qz3), (m12 + m21) / (4 * qz3), qz3,
+                      (m10 - m01) / (4 * qz3)], dim=-1)
+    k = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    q = torch.stack([q0, q1, q2, q3], dim=-2)
+    q = torch.gather(q, -2, k[..., None, None].expand(*k.shape, 1, 4))[..., 0, :]
+    q = q / _norm(q, keepdim=True)
+    return q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
+
+
+def quat_to_rot(q):
+    """Quaternion [..., 4] (x, y, z, w) -> rotation matrix [..., 3, 3]."""
+    q = q / _norm(q, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], dim=-1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], dim=-1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)

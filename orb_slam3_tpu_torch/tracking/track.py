@@ -25,6 +25,7 @@ from ..frontend import camera as cam
 from ..frontend import matching
 from ..ops import lie, robust
 from ..ops.scatter import mark
+from ..utils.threads import FORWARD_AD
 from . import pose_kernel
 
 NO_LM = -1
@@ -90,7 +91,8 @@ def _pose_gn(res_fn, info, valid, gate, delta, R0, t0, rounds: int, iters: int):
                 r = res_fn(*lie.se3_lplus(R, t, dxi))[0]
                 return r, r
 
-            J, r = jacfwd(res_at, has_aux=True)(zero6)  # [M, d, 6], [M, d]
+            with FORWARD_AD:
+                J, r = jacfwd(res_at, has_aux=True)(zero6)  # [M, d, 6], [M, d]
             c2 = torch.sum(r * r, dim=-1) * info
             w_rob = robust.huber_weight(c2, delta) if round_i < 2 else torch.ones_like(c2)
             wJ = J * (w_rob * info * mask)[:, None, None]
@@ -330,8 +332,15 @@ def track_frame_visual(kind: int, K, bf,
     # stage 2: fine matching at the refined pose
     R2, t2, inlier, n2, idx, visible = match_opt(R1, t1, in_map, radius_fine)
 
-    # TrackReferenceKeyFrame appearance fallback (Tracking.cc:2720-2779)
-    if bool(n2 < min_inliers):
+    # TrackReferenceKeyFrame appearance fallback (Tracking.cc:2720-2779),
+    # also when stage 1 kept fewer than 10 inliers: the reference's
+    # TrackWithMotionModel fails there (nmatchesMap >= 10, Tracking.cc:
+    # 2854-2946) and Track() falls back to TrackReferenceKeyFrame (:1939-
+    # 1956). The JAX step reads stage 2 alone, which then starts from the
+    # pose of an ill-posed stage-1 BA: K2 and its plain version diverge on
+    # such a problem, and on the card that pose once found 21 consistent
+    # inliers 0.36 m from the truth and was kept
+    if bool((n2 < min_inliers) | (n1 < 10)):
         midx, _, mok = matching.search_by_brute_force(
             feat_desc, feat_valid, ref_desc, ref_has_lm, ratio=0.7, max_dist=matching.TH_LOW)
         enough = mok.sum() >= 15

@@ -33,13 +33,17 @@ with a pinhole or a KB8 fisheye camera).
   that frame, as the JAX tracker does at `pipeline_depth=1`: one host read
   of the outcome scalars besides the two branch reads of the fused step.
 
+With a vocabulary attached (`attach_loop_closer`) the tracker relocalizes
+a lost frame against the keyframe database (BoW candidates, PnP RANSAC,
+MLPnP, then the motion-only BA through K2), runs the loop closer after each
+keyframe (loop correction or map merge, `graphopt/loop_closer.py`) and
+starts a global BA in a side thread after a loop correction
+(`mapping/global_ba.py`), whose result is reconciled into the map at a
+later keyframe.
+
 Left out of the JAX class, each with the slice that brings it: the
 background mapper (`runtime/mapper.py`) with its commits and the software
-pipeline of in-flight frames (a later slice; ROADMAP Queue 1 item 10);
-the IMU (item 13);
-relocalization, loop closing and global BA (item 14: until then
-`_try_relocalize` returns False, as the JAX one does without a loop closer,
-`tracker.py:690-691`).
+pipeline of in-flight frames (ROADMAP Queue 1 item 10); the IMU (item 13).
 """
 
 from __future__ import annotations
@@ -56,9 +60,11 @@ from ..atlas import ops as atlas_ops
 from ..atlas import state as atlas_state
 from ..frontend import camera as cam
 from ..frontend import matching, orb, stereo, two_view
-from ..mapping import local_mapper, pipeline
+from ..graphopt import loop_closer as lc
+from ..mapping import global_ba, local_mapper, pipeline
 from ..ops import lie
 from ..ops.scatter import add_at
+from ..place import recognition, vocab as vocab_mod
 from ..utils import verbose
 from ..utils.timing import GLOBAL_TIMER
 from . import track as track_mod
@@ -399,6 +405,29 @@ class Tracker:
         self._tracked_lms = None      # [L] landmarks tracked by the last frame
         self._feat_lm = None          # [F] landmark row of each feature of it
         self._caches = {}
+        self._last_reloc_frame = -(10 ** 9)  # keyframe cooldown after a relocalization
+        self.loop_closer = None       # LoopCloser (attach_loop_closer)
+        self.gba = None               # background GlobalBARunner
+        self.background_gba = True    # global BA in a side thread after a loop correction
+
+    def attach_loop_closer(self, voc: vocab_mod.Vocabulary):
+        """Enable place recognition with vocabulary `voc` (moved to the
+        tracker's device): relocalization, loop closing and map merging
+        (the LoopClosing thread and KeyFrameDatabase roles)."""
+        voc = dataclasses.replace(voc, centers=voc.centers.to(self.device),
+                                  weights=voc.weights.to(self.device))
+        self.loop_closer = lc.LoopCloser(voc, self.cfg.kmax, scale_factors=self.scale_factors)
+
+    def _stop_gba(self):
+        """Abort a running global BA and wait for it (mbStopGBA)."""
+        if self.gba is not None and self.gba.running:
+            self.gba.request_abort()
+            self.gba.join(timeout=60.0)
+        self.gba = None
+
+    def shutdown(self):
+        """Stop the background global BA, if one runs."""
+        self._stop_gba()
 
     def _extract(self, img) -> orb.Features:
         """ORB features of one image, with the keypoints undistorted under
@@ -448,6 +477,8 @@ class Tracker:
         kf_tight = self._n_kf_cache() > s.kmax - 4
         if not (lm_tight or kf_tight):
             return
+        # a campaign on the pre-compaction rows cannot be reconciled
+        self._stop_gba()
         old_valid, old_parent = _np(s.kf_valid), _np(s.kf_parent)
         old_R, old_t = _np(s.kf_R).astype(np.float64), _np(s.kf_t).astype(np.float64)
         s2, kf_new_t, lm_new_t = atlas_ops.compact(s)
@@ -507,6 +538,13 @@ class Tracker:
                 self._tracked_lms = torch.cat([self._tracked_lms, pad])
         self.map = s2
         self._map_version += 1
+        if self.loop_closer is not None:
+            if new_kmax:  # the database has kmax rows: a new loop closer
+                old = self.loop_closer
+                self.attach_loop_closer(old.voc)
+                self.loop_closer.n_loops, self.loop_closer.n_merges = old.n_loops, old.n_merges
+            self.loop_closer.pending = None
+            self.loop_closer.rebuild_db(s2)
         verbose.print_mess(f"atlas compacted: n_kf={n_kf2} n_lm={n_lm2}",
                            verbose.VERBOSITY_NORMAL)
 
@@ -514,8 +552,61 @@ class Tracker:
     # relocalization (Tracking::Relocalization, Tracking.cc:3609-3761)
     # ------------------------------------------------------------------
     def _try_relocalize(self, feats) -> bool:
-        """Relocalization needs the keyframe database of the place-
-        recognition slice; without it the JAX tracker returns False too."""
+        """Tracking::Relocalization against the keyframe database: for each
+        BoW candidate (up to 3 within 0.75 of the best score) the frame is
+        matched to the candidate's map points by brute force (ratio 0.85),
+        the pose found by PnP RANSAC (minimal sets from a CPU generator
+        seeded with the frame count), refined by MLPnP, then by the
+        motion-only BA (K2 for a pinhole camera). The three counts are read
+        in one host read and gated as the JAX tracker gates them (>= 15
+        matches, >= 20 PnP inliers, >= 20 BA inliers). On success the
+        tracker is OK at that pose, with no keyframe for kf_max_frames
+        frames, in the candidate's map. False without a loop closer."""
+        if self.loop_closer is None:
+            return False
+        cfg = self.cfg
+        s = self.map
+        L = s.lmax
+        bow = vocab_mod.sparse_bow(self.loop_closer.voc, feats.descriptors, feats.valid)
+        idx, _, ok = recognition.reloc_candidates(self.loop_closer.db, bow)
+        inv_sig2 = self._inv_sigma2(feats.octave)
+        for cand, okc in zip(_np(idx), _np(ok)):
+            if not okc:
+                continue
+            cand = int(cand)
+            with GLOBAL_TIMER.stage("track.reloc_attempt"):
+                lm_c = s.kf_feat_lm[cand]
+                midx, _, mok = matching.search_by_brute_force(
+                    feats.descriptors, feats.valid, s.kf_feat_desc[cand],
+                    (lm_c >= 0) & s.kf_feat_valid[cand], ratio=0.85, max_dist=matching.TH_LOW)
+                lm_rows = torch.clamp(lm_c[midx], 0, L - 1).long()
+                Xw = s.lm_pos[lm_rows]
+                valid = mok & s.lm_valid[lm_rows]
+                R, t, inl, n_inl = recognition.pnp_ransac(
+                    cfg.kind, cfg.K, feats.xy, Xw, valid,
+                    generator=torch.Generator().manual_seed(len(self.trajectory)))
+                R, t, inl, _ = recognition.mlpnp_refine(cfg.kind, cfg.K, R, t, feats.xy, Xw,
+                                                       inv_sig2, valid)
+                R, t, _, n2 = track_mod.pose_optimize(cfg.kind, cfg.K, R, t, feats.xy, Xw,
+                                                      inv_sig2, inl)
+                n_match, n_pnp, n_ba = torch.stack([mok.sum(), n_inl.to(torch.int64),
+                                                    n2.to(torch.int64)]).tolist()
+            if n_match < 15 or n_pnp < 20 or n_ba < 20:
+                continue
+            self.last = {"R": R, "t": t, "feats": feats,
+                         "ts": self.last["ts"] if self.last else 0.0}
+            self.state = OK
+            self.lost_count = 0
+            self._last_reloc_frame = len(self.trajectory)
+            self.velocity = None
+            self._tracked_lms = None
+            cand_map = int(s.kf_map_id[cand])
+            if cand_map != int(s.active_map):
+                self.map = dataclasses.replace(
+                    self.map, active_map=torch.tensor(cand_map, dtype=torch.int32,
+                                                      device=self.device))
+                self._map_version += 1
+            return True
         return False
 
     # ------------------------------------------------------------------
@@ -610,8 +701,12 @@ class Tracker:
 
     def _reset_active_map(self):
         """Discard the active map and restart (Tracking::ResetActiveMap,
-        `Tracking.cc:3840`)."""
+        `Tracking.cc:3840`); the keyframe database forgets its keyframes."""
+        self._stop_gba()
         self.map = atlas_ops.reset_active_map(self.map)
+        if self.loop_closer is not None:
+            self.loop_closer.pending = None
+            self.loop_closer.rebuild_db(self.map)
         self._restart_in_fresh_map()
 
     def _restart_in_fresh_map(self):
@@ -885,6 +980,10 @@ class Tracker:
         if self.mapping_paused:
             return False
         n_kfs = self._n_kf_cache()
+        # relocalization cooldown (Tracking.cc:3091-3094)
+        if (len(self.trajectory) < self._last_reloc_frame + cfg.kf_max_frames
+                and n_kfs > cfg.kf_max_frames):
+            return False
         need_close = False
         depth_sensor = self.base_sensor != "mono"
         if depth_sensor and self._census is not None:
@@ -916,8 +1015,9 @@ class Tracker:
     def _insert_keyframe(self, feats, timestamp, n_inliers: int):
         """Keyframe insertion and the whole local-mapping stack on this
         frame (the JAX tracker's visual path with async_mapping=False):
-        map_stage_pre -> local BA -> map_stage_post. A depth sensor's
-        keyframe carries the frame's right coordinates and depths."""
+        map_stage_pre -> local BA -> map_stage_post, then the loop closer.
+        A depth sensor's keyframe carries the frame's right coordinates and
+        depths."""
         cfg = self.cfg
         if self._n_kf_cache() >= cfg.kmax - 1:
             self._maybe_compact()
@@ -942,9 +1042,39 @@ class Tracker:
         self._finish_keyframe(kf, n_inliers)
 
     def _finish_keyframe(self, kf: int, n_inliers: int):
-        """Tail of keyframe insertion: the pose refreshed from the optimized
-        keyframe and the bookkeeping (loop closing and global BA come with
-        their slice)."""
+        """Tail of keyframe insertion: a finished background global BA
+        reconciled into the map (the current pose moved with the last
+        keyframe's correction; a failed campaign raises here), loop / merge
+        detection on the new keyframe, a global BA launched in a side thread
+        after a loop correction (at most 200 keyframes; a correction while
+        one runs aborts it, `LoopClosing.cc:1199-1207`), then the pose
+        refreshed from the optimized keyframe and the bookkeeping."""
+        cfg = self.cfg
+        if self.gba is not None and self.gba.failed:
+            raise RuntimeError("the background global BA failed") from self.gba.error
+        if self.gba is not None and self.gba.finished:
+            s = self.map
+            Ro, to = s.kf_R[self.last_kf_row], s.kf_t[self.last_kf_row]
+            s = self.gba.reconcile(s)
+            R_rel, t_rel = lie.se3_mul(self.last["R"], self.last["t"], *lie.se3_inv(Ro, to))
+            self.last["R"], self.last["t"] = lie.se3_mul(
+                R_rel, t_rel, s.kf_R[self.last_kf_row], s.kf_t[self.last_kf_row])
+            self.map = s
+            self.velocity = None
+            self._tracked_lms = None
+            self._map_version += 1
+        if self.loop_closer is not None:
+            loops_before = self.loop_closer.n_loops
+            with GLOBAL_TIMER.stage_sync("loop.on_keyframe", self.device):
+                self.map, closed = self.loop_closer.on_keyframe(self.map, kf, cfg.kind, cfg.K)
+            if closed:
+                self._tracked_lms = None
+                if self.loop_closer.n_loops > loops_before:
+                    if self.gba is not None and self.gba.running:
+                        self.gba.request_abort()
+                    elif self.background_gba and int(self.map.n_kf) < 200:
+                        self.gba = global_ba.GlobalBARunner(cfg.K, cfg.kind)
+                        self.gba.launch(self.map)
         s = self.map
         self.last["R"] = s.kf_R[kf]
         self.last["t"] = s.kf_t[kf]

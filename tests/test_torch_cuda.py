@@ -574,3 +574,145 @@ def test_k1_at_the_right_camera_call(cuda, monkeypatch):
     for g, r in zip(got, ref):
         assert torch.equal(g.cpu(), r.cpu())
     assert torch.equal(ok.cpu(), ref[2].cpu()) and int(ok.sum()) >= 200
+
+
+def _merge_map(dev, N=8192, M=1000, n_lm=900, seed=11):
+    """A map at the merge site's shapes (lmax N = 8192, F = M = 1000):
+    keyframes 1-3 observe n_lm landmarks; keyframe 0's features are bound
+    to duplicates of them; landmark n_lm - 1 has a second keeper (same
+    point and descriptor, features of its own), so two keepers match one
+    duplicate's feature."""
+    import dataclasses
+
+    from orb_slam3_tpu_torch.atlas import state as tstate
+
+    rng = np.random.default_rng(seed)
+    K = 8
+    X = np.stack([rng.uniform(-2.0, 2.0, n_lm), rng.uniform(-1.4, 1.4, n_lm),
+                  rng.uniform(4.0, 6.0, n_lm)], -1).astype(np.float32)
+    desc = rng.integers(0, 256, (n_lm, 32), dtype=np.uint8)
+    kf_R = np.tile(np.eye(3, dtype=np.float32), (K, 1, 1))
+    kf_t = np.zeros((K, 3), np.float32)
+    kf_t[:4, 0] = -0.05 * np.arange(4)
+    fxy = np.zeros((K, M, 2), np.float32)
+    fdesc = np.zeros((K, M, 32), np.uint8)
+    flm = np.full((K, M), -1, np.int32)
+    fval = np.zeros((K, M), bool)
+    pos = np.zeros((N, 3), np.float32)
+    ldesc = np.zeros((N, 32), np.uint8)
+    lval = np.zeros(N, bool)
+    first = np.full(N, -1, np.int32)
+    keeper2, dup0 = n_lm, n_lm + 1
+    for rows, k0 in ((np.arange(n_lm), 1), (np.array([keeper2]), 1),
+                     (dup0 + np.arange(n_lm), 0)):
+        src = rows if k0 else rows - dup0
+        src = np.minimum(src, n_lm - 1)
+        pos[rows], ldesc[rows], lval[rows], first[rows] = X[src], desc[src], True, k0
+    for k in range(4):
+        Xc = X + kf_t[k]
+        uv = 450.0 * Xc[:, :2] / Xc[:, 2:] + np.array([376.0, 240.0], np.float32)
+        fxy[k, :n_lm], fdesc[k, :n_lm], fval[k, :n_lm] = uv, desc, True
+        flm[k, :n_lm] = dup0 + np.arange(n_lm) if k == 0 else np.arange(n_lm)
+        if k:
+            fxy[k, n_lm], fdesc[k, n_lm], fval[k, n_lm], flm[k, n_lm] = \
+                uv[-1] + 0.3, desc[-1], True, keeper2
+    kv = np.arange(K) < 4
+    parent = np.where(np.arange(K) < 4, np.arange(K) - 1, -1).astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    s = tstate.empty(kmax=K, fmax=M, lmax=N, device=dev)
+    s = dataclasses.replace(
+        s, kf_R=t(kf_R), kf_t=t(kf_t), kf_valid=t(kv), kf_parent=t(parent), kf_feat_xy=t(fxy),
+        kf_feat_desc=t(fdesc), kf_feat_lm=t(flm), kf_feat_valid=t(fval), lm_pos=t(pos),
+        lm_desc=t(ldesc), lm_valid=t(lval), lm_first_kf=t(first),
+        kf_map_id=torch.zeros(K, dtype=torch.int32, device=dev),
+        lm_map_id=torch.zeros(N, dtype=torch.int32, device=dev),
+        n_kf=torch.tensor(4, dtype=torch.int32, device=dev),
+        n_lm=torch.tensor(int(lval.sum()), dtype=torch.int32, device=dev),
+        lm_visible=t(rng.integers(1, 9, N).astype(np.int32)),
+        lm_found=t(rng.integers(1, 5, N).astype(np.int32)))
+    return tstate.update_landmark_stats(s), keeper2, dup0
+
+
+def test_k1_at_the_merge_call(cuda, monkeypatch):
+    """K1 at merge_duplicates_at_keyframe's shapes (N = 8192 landmarks
+    against M = 1000 bound keypoints, radius 3 px x scale, ratio 0.9,
+    max_dist 35, band -1..+1) with planted duplicates and a two-winner
+    conflict: the kernel equals its plain version exactly on the call's
+    inputs, and the merge on the card equals the merge on the CPU."""
+    import dataclasses
+
+    from orb_slam3_tpu_torch.mapping import fuse
+
+    s, keeper2, dup0 = _merge_map(cuda)
+    sf = 1.2 ** torch.arange(8, dtype=torch.float32)
+    K = torch.tensor([450.0, 450.0, 376.0, 240.0, 0, 0, 0, 0])
+    seen = []
+    orig = mk.search_by_projection_kernel
+
+    def record(*a, **kw):
+        seen.append((a, kw))
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(mk, "search_by_projection_kernel", record)
+    before = mk.launches
+    sg, ng = fuse.merge_duplicates_at_keyframe(0, K.to(cuda), s, 0, sf.to(cuda))
+    assert mk.launches == before + 1
+    (a, kw), = seen
+    assert a[0].shape[0] == 8192 and a[4].shape[0] == 1000
+    assert (kw["ratio"], kw["max_dist"], kw["level_lo"], kw["level_hi"]) == (0.9, 35, -1, 1)
+    ref = mk.search_by_projection_plain(*a, **kw)
+    got = orig(*a, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r.cpu())
+    s_cpu = dataclasses.replace(s, **{f.name: getattr(s, f.name).cpu()
+                                      for f in dataclasses.fields(s)})
+    sc, nc = fuse.merge_duplicates_at_keyframe(0, K, s_cpu, 0, sf)
+    assert int(ng) == int(nc) >= 900
+    for name in ("kf_feat_lm", "lm_valid", "lm_visible", "lm_found"):
+        assert torch.equal(getattr(sg, name).cpu(), getattr(sc, name)), name
+    assert int(sg.kf_feat_lm[0, 899]) == keeper2 and not bool(sg.lm_valid[dup0 + 899])
+
+
+def test_k2_at_the_relocalization_call(cuda, monkeypatch):
+    """K2 at the relocalization site: the mono template over N = F = 1000
+    rows from a PnP-RANSAC / MLPnP initialised pose (30% wrong matches,
+    5% invalid rows), as Tracker._try_relocalize calls it; within R 1e-5 /
+    t 1e-4 of its plain version on the call's inputs."""
+    from orb_slam3_tpu_torch.place import recognition
+    from orb_slam3_tpu_torch.tracking import track
+
+    rng = np.random.default_rng(5)
+    N = 1000
+    f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=cuda)  # noqa: E731
+    X = np.concatenate([rng.uniform(-3, 3, (N, 2)), rng.uniform(4, 9, (N, 1))], 1)
+    R_gt, t_gt = lie.se3_exp(torch.tensor([0.2, -0.1, 0.15, 0.05, -0.1, 0.02]))
+    Xc = (R_gt @ torch.from_numpy(X).float().T).T + t_gt
+    uv = np.ascontiguousarray((450.0 * Xc[:, :2] / Xc[:, 2:] + torch.tensor([376.0, 240.0])).numpy())
+    uv += rng.normal(size=uv.shape) * 0.5
+    uv[:300] = rng.uniform(0, [752, 480], (300, 2))
+    K = f([450.0, 450.0, 376.0, 240.0, 0, 0, 0, 0])
+    valid = torch.from_numpy(rng.uniform(size=N) > 0.05).to(cuda)
+    inv_s2 = f(1.0 / 1.44 ** rng.integers(0, 8, N))
+    R, t, inl, n_inl = recognition.pnp_ransac(0, K, f(uv), f(X), valid,
+                                              generator=torch.Generator().manual_seed(3))
+    R, t, inl, _ = recognition.mlpnp_refine(0, K, R, t, f(uv), f(X), inv_s2, valid)
+    seen = []
+    orig = pk.pose_ba
+
+    def record(*a, **kw):
+        seen.append((a, kw))
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(pk, "pose_ba", record)
+    before = pk.launches
+    R2, t2, _, n2 = track.pose_optimize(0, K, R, t, f(uv), f(X), inv_s2, inl)
+    assert pk.launches == before + 1 and int(n_inl) > 500 and int(n2) > 500
+    (a, kw), = seen
+    assert a[3].shape == (1, N, 2)
+    R_r, t_r, m_r, n_r = pk.pose_ba_plain(*a, **kw)
+    R_g, t_g, m_g, n_g = (x.cpu() for x in orig(*a, **kw))
+    assert torch.equal(n_g, n_r.cpu()) and torch.equal(m_g, m_r.cpu())
+    torch.testing.assert_close(R_g, R_r.cpu(), atol=1e-5, rtol=0)
+    torch.testing.assert_close(t_g, t_r.cpu(), atol=1e-4, rtol=0)
+    torch.testing.assert_close(R2.cpu(), R_gt, atol=2e-3, rtol=0)

@@ -4,7 +4,11 @@
 - The package imports without triton or nvcc (kernels build at first use).
 - Entry points (entry(), bootstrap(), slam(), the tracker's map and config,
   Tracker, System, System(settings_path), to_tracker_config, the
-  rectifier, make_kb8) default to CUDA and raise where there is none.
+  rectifier, make_kb8, the vocabulary's train / load_orb_text and
+  train_vocabulary's camera, the room scene's ray caster) default to CUDA
+  and raise where there is none.
+- The place-recognition and loop-closing subpackages (place/, graphopt/)
+  and the global BA import neither jax nor the JAX package.
 - Settings files are read without PyYAML or OpenCV.
 - The port's copy of the ORB pattern equals the JAX package's asset, and
   atlas/invariants.py is the port's own module.
@@ -131,6 +135,30 @@ def test_settings_rectifier_and_kb8_default_to_cuda_and_raise_without_it(monkeyp
     assert sys_.tracker.device.type == "cpu" and sys_.rectifier.map_l.device.type == "cpu"
 
 
+def test_place_and_loop_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
+                                                                          tmp_path):
+    from orb_slam3_tpu_torch.graphopt import loop_closer
+    from orb_slam3_tpu_torch.place import vocab
+
+    assert {p.name for p in (PKG / "place").glob("*.py")} >= {"vocab.py", "recognition.py"}
+    assert {p.name for p in (PKG / "graphopt").glob("*.py")} >= {
+        "sim3_solver.py", "essential.py", "loop_closer.py"}
+    desc = np.random.default_rng(0).integers(0, 256, (64, 32), dtype=np.uint8)
+    path = tmp_path / "voc.txt"
+    path.write_text("2 1 0 0\n" + "".join(f"0 1 {' '.join(['7'] * 32)} 1.0\n" for _ in range(2)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vocab.train(desc, branching=2, depth=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vocab.load_orb_text(str(path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tentry.room_scene(np.array([200.0, 200.0, 32.0, 24.0]), img_wh=(64, 48), n_panels=1)
+    voc = vocab.train(desc, branching=2, depth=2, device="cpu")
+    assert voc.centers.device.type == "cpu" and voc.n_words == 4
+    lc = loop_closer.LoopCloser(voc, kmax=4)
+    assert lc.db.ids.device.type == "cpu" and lc.db.ids.shape == (4, 1024)
+
+
 def test_yaml_reading_needs_no_pyyaml():
     src = (PKG / "api" / "settings.py").read_text()
     assert "yaml" not in set(_imported_roots(PKG / "api" / "settings.py"))
@@ -142,7 +170,9 @@ def test_entry_points_import_no_jax():
                 "api/evaluate.py", "api/trajectory.py", "mapping/pipeline.py",
                 "mapping/fuse.py", "mapping/local_mapper.py", "utils/timing.py",
                 "utils/verbose.py", "api/settings.py", "frontend/rectify.py",
-                "frontend/camera.py", "frontend/stereo.py"):
+                "frontend/camera.py", "frontend/stereo.py", "place/vocab.py",
+                "place/recognition.py", "graphopt/sim3_solver.py", "graphopt/essential.py",
+                "graphopt/loop_closer.py", "mapping/global_ba.py"):
         roots = set(_imported_roots(PKG / rel))
         assert not roots & set(FORBIDDEN), (rel, roots & set(FORBIDDEN))
 

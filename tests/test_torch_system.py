@@ -234,12 +234,16 @@ def test_loss_new_map_and_reset(session):
 
 def test_system_raises_for_what_is_not_ported(session):
     cfg = session["cfg"]
-    # settings files are read (test_torch_settings.py); a vocabulary and a
-    # saved Atlas wait for their slices
+    # settings files are read (test_torch_settings.py) and a vocabulary
+    # attaches the loop closer (test_torch_loop.py); a saved Atlas waits for
+    # its slice
     with pytest.raises(FileNotFoundError):
         tsys.System("no-such-settings.yaml", device="cpu")
-    with pytest.raises(NotImplementedError, match="vocabulary"):
-        tsys.System(config=cfg, vocabulary=object())
+    from orb_slam3_tpu_torch.place import vocab as tvocab
+
+    voc = tvocab.train(np.random.default_rng(0).integers(0, 256, (200, 32), dtype=np.uint8),
+                       branching=4, depth=2, device="cpu")
+    assert tsys.System(config=cfg, vocabulary=voc).tracker.loop_closer.voc.n_words == 16
     with pytest.raises(NotImplementedError, match="Atlas"):
         tsys.System(config=cfg, atlas_path="atlas.npz")
     with pytest.raises(NotImplementedError, match="inertial"):
@@ -255,7 +259,7 @@ def test_system_raises_for_what_is_not_ported(session):
         with pytest.raises(ValueError, match="'mono' session"):
             call()
     for call in (lambda: system.track_monocular(None, 0.0, imu=np.zeros((1, 7))),
-                 system.run_global_ba, lambda: system.save_atlas("x"),
+                 lambda: system.save_atlas("x"),
                  lambda: system.start_viewer()):
         with pytest.raises(NotImplementedError):
             call()
