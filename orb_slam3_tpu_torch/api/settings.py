@@ -46,7 +46,7 @@ class SlamSettings:
     n_levels: int = 8
     ini_th_fast: int = 20
     min_th_fast: int = 7
-    # IMU (parsed; the inertial sensors come with a later slice)
+    # IMU (the TrackerConfig's imu_noise and Tbc)
     imu_freq: float = 200.0
     noise_gyro: float = 1.7e-4
     noise_acc: float = 2e-3
@@ -246,8 +246,9 @@ def to_tracker_config(s: SlamSettings, device=None, **overrides):
     (default CUDA). A KB8 stereo rig with a right camera and T_c1_c2
     becomes a fisheye-stereo config (R_rl = R_lr^T, t_rl = -R_lr^T t_lr,
     bf = |t_lr| fx unless the file gives one); a pinhole camera with
-    rad-tan coefficients gets its keypoints undistorted. `overrides` set
-    any field afterwards."""
+    rad-tan coefficients gets its keypoints undistorted; the IMU noise
+    densities and Tbc are passed on. `overrides` set any field
+    afterwards."""
     from ..frontend import orb as orb_mod
     from ..tracking import tracker as trk
 
@@ -259,6 +260,9 @@ def to_tracker_config(s: SlamSettings, device=None, **overrides):
         orb=orb_mod.OrbConfig(n_features=s.n_features, n_levels=s.n_levels,
                               scale_factor=s.scale_factor, ini_th_fast=float(s.ini_th_fast),
                               min_th_fast=float(s.min_th_fast)),
+        imu_noise=dict(noise_gyro=s.noise_gyro, noise_acc=s.noise_acc,
+                       walk_gyro=s.walk_gyro, walk_acc=s.walk_acc),
+        Tbc=s.Tbc,
     )
     if (s.kind == cam.PINHOLE and s.dist_coeffs is not None
             and float(np.abs(s.dist_coeffs).max()) > 0):

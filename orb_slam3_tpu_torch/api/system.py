@@ -1,11 +1,12 @@
 """The public session façade (port of orb_slam3_tpu/api/system.py for the
-visual sensors).
+six sensors).
 
 The reference's top-level API (`System.h:105-198`, `System.cc`): construct
 from a reference-format settings file and a sensor, or from a config; feed
 frames with `track_monocular`, `track_stereo` or `track_rgbd` as the
-sensor asks (a legacy stereo file's rectification blocks remap both images
-first, and `Camera.newWidth/newHeight` resizes every image); switch
+sensor asks, each with the frame's IMU measurements for an inertial sensor
+(a legacy stereo file's rectification blocks remap both images first, and
+`Camera.newWidth/newHeight` resizes every image); switch
 localization-only mode on and off, query the tracking state, reset, export
 trajectories. With a vocabulary the session relocalizes, closes loops and
 merges maps; `run_global_ba` optimizes the active map. Each entry point the
@@ -28,8 +29,7 @@ from ..utils.timing import GLOBAL_TIMER
 from . import settings as settings_mod
 from . import trajectory
 
-_INERTIAL = "inertial slice (ROADMAP Queue 1 item 13)"
-_API = "remaining-API slice (item 15)"
+_API = "remaining-API slice (ROADMAP Queue 1 item 15)"
 
 
 def _not_ported(what: str, slice_: str):
@@ -40,12 +40,16 @@ class System:
     MONOCULAR = "mono"
     STEREO = "stereo"
     RGBD = "rgbd"
+    IMU_MONOCULAR = "mono-imu"
+    IMU_STEREO = "stereo-imu"
+    IMU_RGBD = "rgbd-imu"
 
     def __init__(self, settings_path: Optional[str] = None, sensor: str = "mono",
                  vocabulary=None, config: Optional[trk.TrackerConfig] = None,
                  atlas_path: Optional[str] = None, device=None):
         """settings_path: a reference-format YAML read for `sensor` ("mono",
-        "stereo" or "rgbd"; the System ctor reads the settings file,
+        "stereo" or "rgbd", each also with "-imu"; the System ctor reads the
+        settings file,
         `System.cc:70-85`), on `device` (default CUDA). Or config: a
         TrackerConfig, whose `sensor` the session runs (`sensor`, when not
         the default, must name the same one); the camera tensor's device is
@@ -69,8 +73,6 @@ class System:
                                                  s.height, device=dev)
             if s.resize_wh is not None:
                 self._resize_hw = (s.resize_wh[1], s.resize_wh[0])
-        if "imu" in sensor + config.sensor:
-            _not_ported(f"sensor {sensor!r} / {config.sensor!r}", _INERTIAL)
         if sensor != self.MONOCULAR and sensor != config.sensor:
             raise ValueError(f"sensor {sensor!r} but the config's is {config.sensor!r}")
         if atlas_path is not None:
@@ -81,9 +83,11 @@ class System:
             self.tracker.attach_loop_closer(vocabulary)
 
     # ------------------------------------------------------------------
-    def _expect(self, sensor: str, call: str):
+    def _expect(self, sensor: str, call: str, imu):
         if self.tracker.base_sensor != sensor:
             raise ValueError(f"{call} on a {self.tracker.base_sensor!r} session")
+        if imu is not None and self.tracker.imu is None:
+            raise ValueError(f"IMU measurements passed to a {self.tracker.cfg.sensor!r} session")
 
     def _resize(self, img):
         """Camera.newWidth/newHeight: a bilinear resize with half-pixel
@@ -103,34 +107,30 @@ class System:
             return self.current_pose(settle=False)
 
     def track_monocular(self, img, timestamp: float, imu=None):
-        """System::TrackMonocular (`System.cc:399`). Returns the frame's
-        (R, t) Tcw as tensors on the session's device, or None before
-        initialization."""
-        if imu is not None:
-            _not_ported("IMU measurements", _INERTIAL)
-        self._expect(self.MONOCULAR, "track_monocular")
-        return self._track(self._resize(img), timestamp)
+        """System::TrackMonocular (`System.cc:399`); imu: the [M, 7] rows
+        (t, gx, gy, gz, ax, ay, az) measured since the previous frame, for
+        an inertial session. Returns the frame's (R, t) Tcw as tensors on
+        the session's device, or None before initialization."""
+        self._expect(self.MONOCULAR, "track_monocular", imu)
+        return self._track(self._resize(img), timestamp, imu=imu)
 
     def track_stereo(self, img_left, img_right, timestamp: float, imu=None):
         """System::TrackStereo (`System.cc:244`); returns as track_monocular
         does. A settings file with rectification blocks remaps the raw pair
         first (`System.cc:253-265`)."""
-        if imu is not None:
-            _not_ported("IMU measurements", _INERTIAL)
-        self._expect(self.STEREO, "track_stereo")
+        self._expect(self.STEREO, "track_stereo", imu)
         if self.rectifier is not None:
             with GLOBAL_TIMER.stage("track.rectify"):
                 img_left, img_right = self.rectifier(img_left, img_right)
-        return self._track(self._resize(img_left), timestamp, img_right=self._resize(img_right))
+        return self._track(self._resize(img_left), timestamp, img_right=self._resize(img_right),
+                           imu=imu)
 
     def track_rgbd(self, img, depth, timestamp: float, imu=None):
         """System::TrackRGBD (`System.cc:328`): an image and its registered
         [H, W] depth map (scaled by the config's depth_factor); returns as
         track_monocular does."""
-        if imu is not None:
-            _not_ported("IMU measurements", _INERTIAL)
-        self._expect(self.RGBD, "track_rgbd")
-        return self._track(self._resize(img), timestamp, depth_map=self._resize(depth))
+        self._expect(self.RGBD, "track_rgbd", imu)
+        return self._track(self._resize(img), timestamp, depth_map=self._resize(depth), imu=imu)
 
     # ------------------------------------------------------------------
     def current_pose(self, settle: bool = True):
@@ -179,10 +179,21 @@ class System:
         trajectory.save_tum(path, ts, R, t, ok)
 
     def save_trajectory_euroc(self, path: str):
-        """SaveTrajectoryEuRoC (`System.cc:662-882`), camera frame (the body
-        frame of the inertial sensors comes with their slice)."""
+        """SaveTrajectoryEuRoC (`System.cc:662-882`): the camera frame, or
+        for an inertial sensor the body frame Twb through Tbc (EuRoC's
+        ground truth is in the IMU frame)."""
         ts, R, t, ok = self.tracker.poses()
-        trajectory.save_euroc(path, ts, R, t, ok)
+        trajectory.save_euroc(path, ts, R, t, ok, Tbc=self._tbc())
+
+    def _tbc(self):
+        """The 4x4 camera-to-body extrinsics of an inertial sensor, else None."""
+        imu = self.tracker.imu
+        if imu is None:
+            return None
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = imu.Rbc.cpu().numpy()
+        T[:3, 3] = imu.tbc.cpu().numpy()
+        return T
 
     def save_trajectory_kitti(self, path: str):
         ts, R, t, ok = self.tracker.poses()
@@ -213,7 +224,19 @@ class System:
         _not_ported("the 3D map viewer (api/viz.py)", _API)
 
     def save_debug_data(self, path: str):
-        _not_ported("the inertial debug history", _INERTIAL)
+        """System::SaveDebugData (`System.cc:1265-1318`): the inertial
+        initialization and refinement history, one line per event
+        (timestamp, event, scale applied, gravity, gyro and acc biases)."""
+        with open(path, "w") as f:
+            f.write("# ts event scale gx gy gz bgx bgy bgz bax bay baz\n")
+            for e in self.tracker.debug_events:
+                if "gravity" not in e:   # a bad-IMU reset carries no solution
+                    continue
+                g, bg, ba = e["gravity"], e["bg"], e["ba"]
+                f.write(f"{e['ts']:.6f} {e['event']} {e['scale']:.6f} "
+                        f"{g[0]:.4f} {g[1]:.4f} {g[2]:.4f} "
+                        f"{bg[0]:.6f} {bg[1]:.6f} {bg[2]:.6f} "
+                        f"{ba[0]:.6f} {ba[1]:.6f} {ba[2]:.6f}\n")
 
     def start_viewer(self, port: int = 8090, refresh_s: float = 1.0):
         _not_ported("the live viewer (api/viewer.py)", _API)

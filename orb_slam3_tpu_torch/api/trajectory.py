@@ -42,10 +42,16 @@ def rot_to_quat(R):
     return q * np.where(q[..., 3:4] < 0, -1.0, 1.0)
 
 
-def _twc(R_cw, t_cw):
-    """Tcw -> (R_wc, t_wc = camera centre). The body-frame export of the
-    inertial sensors (Tbc, System.cc:662-882) comes with their slice."""
+def _twc(R_cw, t_cw, Tbc=None):
+    """Tcw -> (R_wc, t_wc = camera centre). With Tbc (camera-to-body, X_b =
+    Rbc X_c + tbc) the body poses Twb = (Tbc Tcw)^-1 instead, as
+    SaveTrajectoryEuRoC exports an inertial sensor's (System.cc:662-882)."""
     R_cw, t_cw = np.asarray(R_cw), np.asarray(t_cw)
+    if Tbc is not None:
+        Tbc = np.asarray(Tbc)
+        Rbc, tbc = Tbc[:3, :3], Tbc[:3, 3]
+        R_cw, t_cw = (np.einsum("ij,njk->nik", Rbc, R_cw),
+                      np.einsum("ij,nj->ni", Rbc, t_cw) + tbc)
     R_wc = np.swapaxes(R_cw, -1, -2)
     t_wc = -np.einsum("nij,ni->nj", R_cw, t_cw)
     return R_wc, t_wc
@@ -65,10 +71,11 @@ def save_tum(path: str, ts, R_cw, t_cw, ok=None) -> None:
             )
 
 
-def save_euroc(path: str, ts, R_cw, t_cw, ok=None) -> None:
+def save_euroc(path: str, ts, R_cw, t_cw, ok=None, Tbc=None) -> None:
     """EuRoC format: nanosecond timestamps (SaveTrajectoryEuRoC,
-    System.cc:662-882)."""
-    R_wc, c = _twc(R_cw, t_cw)
+    System.cc:662-882); with Tbc the IMU body frame, as the reference
+    exports an inertial sensor's."""
+    R_wc, c = _twc(R_cw, t_cw, Tbc)
     q = rot_to_quat(R_wc)
     with open(path, "w") as f:
         for i in range(len(ts)):

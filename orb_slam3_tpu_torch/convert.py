@@ -161,3 +161,37 @@ def keyframe_db(db, device=None):
     dev = device_mod.resolve(device)
     return recognition.KeyframeDB(ids=_i32(db.ids, dev), vals=_f32(db.vals, dev),
                                   valid=_bool(db.valid, dev), n_words=int(db.n_words))
+
+
+def preintegrated(p, device=None):
+    """A JAX Preintegrated (one window or a stack) -> the port's, every
+    field float32."""
+    from .imu import preintegration
+
+    dev = device_mod.resolve(device)
+    return preintegration.Preintegrated(**{
+        f.name: _f32(getattr(p, f.name), dev)
+        for f in dataclasses.fields(preintegration.Preintegrated)})
+
+
+def imu_state(imu, device=None):
+    """A JAX tracker's ImuState -> the port's: the noise densities and
+    extrinsics, biases and velocity (float32 tensors), the per-keyframe
+    interval buffers, the open window and the last frame's measurements
+    (numpy copies), and the stage flags and timestamps."""
+    from .tracking import vi_tracker
+
+    dev = device_mod.resolve(device)
+    Tbc = np.eye(4, dtype=np.float32)
+    Tbc[:3, :3], Tbc[:3, 3] = np.asarray(imu.Rbc), np.asarray(imu.tbc)
+    out = vi_tracker.ImuState(imu.noise, Tbc, dev)
+    out.bg, out.ba, out.vel = _f32(imu.bg, dev), _f32(imu.ba, dev), _f32(imu.vel, dev)
+    out.kf_buffers = {int(r): tuple(np.array(x) for x in b) for r, b in imu.kf_buffers.items()}
+    out._cur = tuple([np.array(x) for x in lst] for lst in imu._cur)
+    out._frame_meas = (None if imu._frame_meas is None
+                       else tuple(np.array(x) for x in imu._frame_meas))
+    out._frame_window = None
+    for name in ("initialized", "first_kf_ts", "init_ts", "viba_stage", "last_scale_refine_ts",
+                 "tinit", "bad"):
+        setattr(out, name, getattr(imu, name))
+    return out

@@ -37,6 +37,12 @@ pixels of a pinhole camera with rad-tan distortion; `render_radtan`);
 `kb8_stereo_settings` and `euroc_legacy_settings` write the settings files
 of those two rigs.
 
+With an inertial config (`sensor="mono-imu"`, `"stereo-imu"` or
+`"rgbd-imu"`) `slam(frames, cfg, imu=packets, timestamps=...)` passes each
+frame's IMU packet through; `vi_render_trajectory` and
+`vi_depth_trajectory` are the IMU-consistent trajectories of
+tests/test_slam_vi.py and tests/test_slam_vi_depth.py in numpy.
+
 With a vocabulary (`slam(..., vocabulary=...)`, trained in the run by
 `train_vocabulary` on held-out views) the session relocalizes, closes loops
 and merges maps. `room_scene` and `loop_trajectory` are the textured room
@@ -281,7 +287,8 @@ def track_sequence(cfg, init, feats, timer=tracker.no_timer):
 
 
 def slam(frames, cfg=None, device=None, localize_from=None, timer=tracker.no_timer,
-         settings_path=None, sensor="mono", vocabulary=None, until=None):
+         settings_path=None, sensor="mono", vocabulary=None, until=None, imu=None,
+         timestamps=None):
     """SLAM over `frames`, 0.05 s apart, through the System façade on
     `device` (default CUDA), routed on the session's sensor: track_monocular
     ("mono", each frame an [H, W] image), track_stereo ("stereo", each frame
@@ -296,8 +303,11 @@ def slam(frames, cfg=None, device=None, localize_from=None, timer=tracker.no_tim
     8192, window 8). With `vocabulary` the session relocalizes, closes loops
     and merges maps. `timer(name)` is a context manager wrapped around each
     frame ("frame"); the session stops after the first frame on which
-    `until(system)` holds. Returns the System, whose tracker holds the map
-    and the trajectory."""
+    `until(system)` holds. An inertial session passes `imu[i]`, the [M, 7]
+    packet (t, gx, gy, gz, ax, ay, az) measured up to frame i, with frame i
+    (System::Track*(..., vImuMeas)). `timestamps` replaces the frames'
+    0.05 s spacing. Returns the System, whose tracker holds the map and
+    the trajectory."""
     from .api.system import System
 
     if settings_path is not None:
@@ -307,14 +317,16 @@ def slam(frames, cfg=None, device=None, localize_from=None, timer=tracker.no_tim
     else:
         sys_ = System(config=cfg if cfg is not None else tracker_config(device),
                       vocabulary=vocabulary, device=device)
-    track = {"mono": lambda f, ts: sys_.track_monocular(f, ts),
-             "stereo": lambda f, ts: sys_.track_stereo(f[0], f[1], ts),
-             "rgbd": lambda f, ts: sys_.track_rgbd(f[0], f[1], ts)}[sys_.tracker.base_sensor]
+    track = {"mono": lambda f, ts, m: sys_.track_monocular(f, ts, imu=m),
+             "stereo": lambda f, ts, m: sys_.track_stereo(f[0], f[1], ts, imu=m),
+             "rgbd": lambda f, ts, m: sys_.track_rgbd(f[0], f[1], ts, imu=m),
+             }[sys_.tracker.base_sensor]
     for i, frame in enumerate(frames):
         if i == localize_from:
             sys_.activate_localization_mode()
         with timer("frame"):
-            track(frame, 0.05 * i)
+            track(frame, 0.05 * i if timestamps is None else timestamps[i],
+                  None if imu is None else imu[i])
         if until is not None and until(sys_):
             break
     sys_.tracker.settle()
@@ -604,6 +616,98 @@ def plane_sequence(n_frames: int, img_wh=FULL_WH, K=FULL_K, seed: int = 0):
     R, t = orbit_trajectory(n_frames)
     frames = [render_planes(planes, K, img_wh, R[i], t[i]) for i in range(n_frames)]
     return frames, R, t, planes
+
+
+# ---------------------------------------------------------------------------
+# IMU-consistent trajectories (tests/test_slam_vi.py, tests/test_slam_vi_depth.py)
+# ---------------------------------------------------------------------------
+
+GRAVITY = 9.81
+
+
+def so3_exp_np(w):
+    """Rodrigues in float64 numpy: axis-angle [3] -> rotation [3, 3]."""
+    w = np.asarray(w, np.float64)
+    th = float(np.linalg.norm(w))
+    W = np.array([[0.0, -w[2], w[1]], [w[2], 0.0, -w[0]], [-w[1], w[0], 0.0]])
+    if th < 1e-6:
+        a, b = 1.0 - th * th / 6.0, 0.5 - th * th / 24.0
+    else:
+        a, b = np.sin(th) / th, (1.0 - np.cos(th)) / (th * th)
+    return np.eye(3) + a * W + b * (W @ W)
+
+
+def _imu_rows(R, v, p, t_abs, per_frame, dt, accel):
+    """One frame's IMU packet by the exact discrete recursion the
+    preintegration assumes; accel(t) -> (world acceleration, body rate).
+    Returns (rows [per_frame, 7], R, v, p) after the packet."""
+    g = np.array([0.0, 0.0, -GRAVITY])
+    rows = []
+    for k in range(per_frame):
+        t = t_abs + k * dt
+        a_w, w_b = accel(t)
+        rows.append(np.concatenate([[t + dt], w_b, R.T @ (a_w - g)]))
+        p = p + v * dt + 0.5 * a_w * dt * dt
+        v = v + a_w * dt
+        R = R @ so3_exp_np(w_b * dt)
+    return np.array(rows), R, v, p
+
+
+def vi_render_trajectory(n_frames=40, fps=10.0, hz=200.0):
+    """tests/test_slam_vi.vi_render_trajectory: (R_cw [N,3,3], t_cw [N,3],
+    IMU packets) with camera = body, z forward and gravity -z. Frame f is
+    the state at the END of packet f, t = (f + 1) / fps, which is the
+    timestamp a caller passes with it (recording it before the packet pairs
+    each preintegration with the visual displacement a frame ahead: a
+    17-19% scale bias under the acceleration ramp)."""
+    dt = 1.0 / hz
+    per_frame = int(hz / fps)
+
+    def accel(t):
+        ramp = min(t / 0.5, 1.0)
+        a_w = np.array([0.7 * (1.0 - ramp) + 0.35 * np.sin(1.9 * t), 0.25 * np.cos(1.3 * t),
+                        0.18 * np.sin(0.9 * t)])
+        return a_w, np.array([0.05 * np.sin(0.7 * t), 0.06 * np.cos(0.9 * t), 0.04])
+
+    R, v, p, t_abs = np.eye(3), np.zeros(3), np.zeros(3), 0.0
+    R_cw, t_cw, packets = [], [], []
+    for _ in range(n_frames):
+        rows, R, v, p = _imu_rows(R, v, p, t_abs, per_frame, dt, accel)
+        t_abs += per_frame * dt
+        packets.append(rows)
+        R_cw.append(R.T.copy())
+        t_cw.append(-R.T @ p)
+    return np.stack(R_cw), np.stack(t_cw), packets
+
+
+def vi_depth_trajectory(n_frames=36, hz=200.0, fps=10.0, n_gentle=6):
+    """tests/test_slam_vi_depth.vi_depth_trajectory: a gentle lead-in of
+    n_gentle frames whose acceleration changes by less than 0.5 m/s^2
+    between frames (the excitation gate must refuse it), then a vigorous
+    shake with drift. Here frame f is the state at the START of packet f,
+    as in that test."""
+    dt = 1.0 / hz
+    per_frame = int(hz / fps)
+    t_shake = n_gentle / fps
+
+    def accel(t):
+        if t < t_shake:
+            return (np.array([0.03 * np.sin(0.8 * t), 0.02, 0.0]),
+                    np.array([0.01, 0.015, 0.01]))
+        ts = t - t_shake
+        return (np.array([2.5 * np.sin(12.0 * ts) + 0.5, 1.8 * np.cos(9.0 * ts),
+                          0.9 * np.sin(7.0 * ts)]),
+                np.array([0.05 * np.sin(0.7 * ts), 0.06 * np.cos(0.9 * ts), 0.04]))
+
+    R, v, p, t_abs = np.eye(3), np.zeros(3), np.zeros(3), 0.0
+    R_cw, t_cw, packets = [], [], []
+    for _ in range(n_frames):
+        R_cw.append(R.T.copy())
+        t_cw.append(-R.T @ p)
+        rows, R, v, p = _imu_rows(R, v, p, t_abs, per_frame, dt, accel)
+        t_abs += per_frame * dt
+        packets.append(rows)
+    return np.stack(R_cw), np.stack(t_cw), packets
 
 
 # ---------------------------------------------------------------------------

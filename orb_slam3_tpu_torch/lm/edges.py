@@ -8,7 +8,7 @@ and batched by the engine. The mono and stereo reprojection edges, full and
 pose-only, and the right-camera (ToBody) edges of a non-rectified stereo
 rig are here (`OptimizableTypes.cpp`, `G2oTypes.cc`), with the Sim3
 vertex, the relative SE3 / Sim3 pose-graph edges and the Sim3 point edges
-of OptimizeSim3; the inertial residuals come with the inertial slice.
+of OptimizeSim3; the inertial residuals are in imu/factors.py.
 """
 
 from __future__ import annotations

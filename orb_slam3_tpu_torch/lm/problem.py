@@ -44,7 +44,10 @@ class EdgeBatch:
     """E homogeneous factors: indices (one [E] tensor per vertex slot), data
     (dict of per-edge tensors), info [E] or [E, Dr, Dr], mask [E] bool,
     residual(vertex_state_1, ..., data_slice) -> [Dr], and the Huber
-    threshold on sqrt(chi2) (None: no robust kernel)."""
+    threshold on sqrt(chi2) (None: no robust kernel). `jacobian`, when
+    given, returns (residual, (J_slot1 [Dr, d_1], ...)) for one edge in
+    the blocks' retraction tangents and replaces forward-mode
+    differentiation of `residual`."""
 
     indices: Tuple[torch.Tensor, ...]
     data: Any
@@ -54,6 +57,7 @@ class EdgeBatch:
     residual_dim: int
     residual: Callable
     huber_delta: Optional[float] = None
+    jacobian: Optional[Callable] = None
 
     @property
     def num(self) -> int:
@@ -108,9 +112,12 @@ def total_cost(problem: Problem):
 
 def linearize_edge(problem: Problem, edge: EdgeBatch):
     """Residuals [E, Dr] and per-slot tangent Jacobians ([E, Dr, d_s] each)
-    of one edge batch, through each block's retract at 0."""
+    of one edge batch: the edge's closed form where it has one, else
+    forward-mode through each block's retract at 0."""
     blocks = [problem.blocks[n] for n in edge.vertex_blocks]
     states = [gather_state(b.state, i) for b, i in zip(blocks, edge.indices)]
+    if edge.jacobian is not None:
+        return vmap(edge.jacobian)(*states, edge.data)
     retracts = [b.retract for b in blocks]
 
     def with_deltas(deltas, *states_and_data):

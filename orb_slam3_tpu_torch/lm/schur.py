@@ -44,7 +44,9 @@ class BAProblem:
     cams: VertexBlock of K cameras; points [L,3]; point_fixed [L] bool;
     cam_idx / lm_idx [E] incidence; obs_data dict of [E, ...]; obs_info [E]
     or [E,Dr,Dr]; obs_mask [E] bool; cam_edges: EdgeBatches over block
-    "cam"; residual(cam_state, point [3], data_slice) -> [Dr]."""
+    "cam"; residual(cam_state, point [3], data_slice) -> [Dr]; `jacobian`,
+    when given, returns (residual, Jc [Dr, C], Jl [Dr, 3]) of one edge and
+    replaces forward-mode differentiation."""
 
     cams: VertexBlock
     points: torch.Tensor
@@ -58,6 +60,7 @@ class BAProblem:
     residual_dim: int
     residual: Callable
     huber_delta: Optional[float] = None
+    jacobian: Optional[Callable] = None
 
 
 class BAStats(NamedTuple):
@@ -99,6 +102,8 @@ def _gathered(p: BAProblem):
 def _linearize_obs(p: BAProblem):
     """Residuals and Jacobians of the visual edges at the current state."""
     cam_states, X = _gathered(p)
+    if p.jacobian is not None:
+        return vmap(p.jacobian)(cam_states, X, p.obs_data)
     retract = p.cams.retract
 
     def f(dc, dx, cam_s, x, data):

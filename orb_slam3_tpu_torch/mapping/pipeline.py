@@ -16,9 +16,13 @@ Where the JAX program selects on device values (`jax.lax.top_k`, `where`
 on a cull flag), the port reads the few scalars it branches on to the host
 once: the keyframe row, the two top-k lists and the cull flag. A depth
 sensor's keyframe also makes landmarks from its measured depths, and its
-local BA runs stereo edges. The stage helpers of the inertial path
-(`insert_keyframe_pkg`, `triangulate_mono`, `fuse_recent`, `ba_window`,
-`cull`) come with the inertial slice.
+local BA runs stereo edges.
+
+The inertial sensors run the JAX package's per-stage helpers instead
+(`insert_keyframe_pkg`, `triangulate_mono`, `fuse_recent` with K1 over the
+last 4 keyframes, `ba_window`, `cull`; JAX `pipeline.py:81-237`), between
+which the tracker places the IMU's interval commit, the visual-inertial
+BA and the inertial culling and initialization.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+import numpy as np
 
 from ..atlas import ops as atlas_ops
 from ..atlas import state as atlas_state
@@ -39,9 +45,9 @@ from . import fuse, local_mapper
 
 @dataclasses.dataclass
 class KFPackage:
-    """One keyframe's worth of tracking output. The JAX package's inertial
-    fields (the IMU interval and the gauge version) come with the inertial
-    slice."""
+    """One keyframe's worth of tracking output. The JAX package's fields for
+    the background mapper (the IMU interval cut at request time and the
+    gauge version) come with that mapper (ROADMAP Queue 1 item 10)."""
 
     R: torch.Tensor              # [3,3] Tcw at creation
     t: torch.Tensor              # [3]
@@ -217,4 +223,104 @@ def map_stage_post(s: atlas_state.MapState, ba_rows, min_kf_for_cull: int):
     s = local_mapper.cull_landmarks(s)
     if int(s.kf_valid.sum()) > int(min_kf_for_cull):
         s = local_mapper.cull_keyframes(s, ba_rows)
+    return atlas_state.update_landmark_stats(s)
+
+
+# ---------------------------------------------------------------------------
+# Per-stage helpers of the inertial path (JAX pipeline.py:81-237)
+# ---------------------------------------------------------------------------
+
+def insert_keyframe_pkg(s: atlas_state.MapState, pkg: KFPackage, cfg, base_sensor: str,
+                        parent_row: int):
+    """Add the keyframe row and, for a depth sensor, landmarks at the
+    measured depths of its unbound close features (those nearer than bf *
+    th_depth / fx, or among the 100 nearest; Tracking::CreateNewKeyFrame,
+    `Tracking.cc:3216-3331`). The tracked bindings are re-validated against
+    the current landmark validity. Returns (state, kf_row int)."""
+    L = s.lmax
+    dev = s.device
+    feat_lm = pkg.feat_lm
+    if feat_lm is not None:
+        alive = s.lm_valid[torch.clamp(feat_lm, 0, L - 1).long()] & (feat_lm >= 0)
+        feat_lm = torch.where(alive, feat_lm, atlas_state.NO_LM)
+    parent = torch.tensor(int(parent_row), dtype=torch.int32, device=dev)
+    s, kf = atlas_ops.add_keyframe(
+        s, pkg.R, pkg.t, pkg.timestamp, pkg.feat_xy, pkg.feat_octave, pkg.feat_angle,
+        pkg.feat_desc, pkg.feat_valid, feat_lm=feat_lm, feat_ur=pkg.feat_ur,
+        feat_depth=pkg.feat_depth, parent=parent, prev=parent)
+    kf = int(kf)
+    if base_sensor != "mono" and pkg.feat_depth is not None:
+        depth = pkg.feat_depth
+        F = depth.shape[0]
+        has_depth = (depth > cfg.min_depth) & pkg.feat_valid & (s.kf_feat_lm[kf] < 0)
+        th_depth_m = cfg.bf * cfg.th_depth / float(cfg.K[0])
+        # rank in depth order, ties to the lower feature (a stable sort)
+        order = torch.argsort(torch.where(has_depth, depth, torch.inf), stable=True)
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(F, device=dev)
+        close = has_depth & ((depth < th_depth_m) | (rank < 100))
+        Rw, tw = lie.se3_inv(pkg.R, pkg.t)
+        Xw = lie.se3_apply(Rw, tw, cam.unproject(cfg.kind, cfg.K, pkg.feat_xy) * depth[:, None])
+        col = torch.full((F,), kf, dtype=torch.int32, device=dev)
+        s, _ = atlas_ops.add_landmarks(s, Xw, pkg.feat_desc, col, close, col,
+                                       torch.arange(F, dtype=torch.int32, device=dev))
+    return s, kf
+
+
+def triangulate_mono(s: atlas_state.MapState, kf: int, cfg, scale_factors, fallback_row: int,
+                     n_neighbors: int = 3):
+    """CreateNewMapPoints against the best covisible neighbours with a
+    weight of at least 15 (LocalMapping.cc:391-408), or the parent when
+    there is none; the neighbours in numpy's argsort order of the weights,
+    as the JAX helper takes them; measured depths first for a depth
+    sensor."""
+    W = atlas_state.covisibility_weights(s)[kf].cpu().numpy().copy()
+    W[kf] = 0
+    order = np.argsort(-W)
+    prev_rows = [int(r) for r in order[:n_neighbors] if W[r] >= 15]
+    if not prev_rows and fallback_row >= 0:
+        prev_rows = [fallback_row]
+    use_depth = cfg.sensor.split("-")[0] != "mono"
+    for prev in prev_rows:
+        Xw, f1, f2, accept = local_mapper.triangulate_pair(
+            cfg.kind, cfg.K, s, kf, prev, scale_factors, use_depth=use_depth,
+            min_depth=cfg.min_depth)
+        s = local_mapper.insert_triangulated(s, kf, prev, Xw, f1, f2, accept)
+    return s
+
+
+def fuse_recent(s: atlas_state.MapState, cfg, scale_factors, n_recent: int = 4):
+    """Densify observations into the `n_recent` newest keyframe rows
+    (SearchInNeighbors role, LocalMapping.cc:714): one K1 launch per row."""
+    n_kf = int(s.n_kf)
+    for krow in range(max(0, n_kf - n_recent), n_kf):
+        s = fuse.fuse_into_keyframe(cfg.kind, cfg.K, s, krow, scale_factors)
+    return s
+
+
+def ba_window(s: atlas_state.MapState, cfg):
+    """The local-BA window: the last `local_window` valid keyframes of the
+    active map free and up to 4 earlier ones fixed
+    (Optimizer::LocalBundleAdjustment's lFixedCameras, Optimizer.cc:1118),
+    padded to local_window + 4 rows by repeating the newest. Returns (rows
+    [w + 4] np.int64, n_fixed)."""
+    w = cfg.local_window
+    valid_rows = np.nonzero((s.kf_valid & (s.kf_map_id == s.active_map)).cpu().numpy())[0]
+    n_rows = min(len(valid_rows), w + 4)
+    rows = valid_rows[-n_rows:]
+    n_fixed = max(2, n_rows - w) if n_rows > 2 else 1
+    rows = np.concatenate([rows, np.full((w + 4) - len(rows), rows[-1])])
+    return rows, n_fixed
+
+
+def cull(s: atlas_state.MapState, cfg, rows, use_imu: bool):
+    """MapPoint culling and, for a visual map, KeyFrame culling over the
+    window once the map has more than local_window + 4 keyframe rows
+    (LocalMapping.cc:346, 902); then the landmark statistics. The inertial
+    map culls keyframes with the chain rules of
+    vi_tracker.cull_keyframes_inertial instead."""
+    w = cfg.local_window
+    s = local_mapper.cull_landmarks(s)
+    if not use_imu and int(s.n_kf) > w + 4:
+        s = local_mapper.cull_keyframes(s, torch.as_tensor(rows[: w + 4], device=s.device))
     return atlas_state.update_landmark_stats(s)

@@ -1,5 +1,6 @@
 """SO(3) / SE(3) over trailing dimensions (port of the SE3 subset of
-orb_slam3_tpu/ops/lie.py).
+orb_slam3_tpu/ops/lie.py, with the right Jacobian and its inverse that
+the IMU preintegration uses).
 
 Rotations are `[..., 3, 3]` matrices, translations `[..., 3]` vectors.
 Twists are ordered (rho, phi) = (translation, rotation) like Sophus; the
@@ -125,6 +126,35 @@ def so3_left_jacobian(w):
     return _eye_like(W) + b[..., None] * W + c[..., None] * W2
 
 
+def so3_exp_and_right_jacobian(w):
+    """(so3_exp(w), so3_right_jacobian(w)) from one set of angle terms: the
+    same values as the two calls, with half the kernels (the IMU
+    preintegration takes both of every sample)."""
+    theta, theta2, small, th_s, th2_s = _theta(w)
+    W = hat(w)
+    W2 = W @ W
+    sin_t, cos_t = torch.sin(th_s), torch.cos(th_s)
+    a = torch.where(small, 1.0 - theta2 / 6.0, sin_t / th_s)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - cos_t) / th2_s)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (th_s - sin_t) / (th2_s * th_s))
+    eye, bW, W2c = _eye_like(W), b[..., None] * W, c[..., None] * W2
+    return eye + a[..., None] * W + b[..., None] * W2, eye - bW + W2c
+
+
+def so3_right_jacobian(w):
+    """Right Jacobian J_r(w) = J_l(-w) (IMU::RightJacobianSO3)."""
+    return so3_left_jacobian(-w)
+
+
+def so3_right_jacobian_inv(w):
+    """Inverse right Jacobian J_r^-1(w) = J_l^-1(-w)
+    (IMU::InverseRightJacobianSO3), equal to the JAX function: like it, the
+    closed form takes the guarded angle of `_theta` (t - 1e-8), which
+    leaves its second-order term far off at |w| ~ 1e-4; the inertial
+    closed-form Jacobians use `imu/factors._inv_right_jacobian`."""
+    return _left_jacobian_inv(-w)
+
+
 def _left_jacobian_inv(w):
     theta, theta2, small, th_s, th2_s = _theta(w)
     W = hat(w)
@@ -143,6 +173,23 @@ def normalize_rotation(R):
     det = torch.linalg.det(U @ Vh)
     D = torch.cat([torch.ones_like(R[..., :2, 0]), det[..., None]], dim=-1)
     return (U * D[..., None, :]) @ Vh
+
+
+def nearest_rotation(R, iters: int = 2):
+    """The rotation nearest to a matrix that is almost one: the polar factor
+    that `normalize_rotation`'s SVD gives, by Newton's iteration X <- (X +
+    X^-T) / 2 with X^-T = cofactor(X) / det(X). Elementwise work and no
+    solver, so the card runs a few small kernels where the SVD runs cuSOLVER
+    and waits for it; from the ~1e-7 drift of an f32 product of rotations
+    one step already reaches rounding."""
+    X = R
+    for _ in range(iters):
+        r0, r1, r2 = X[..., 0, :], X[..., 1, :], X[..., 2, :]
+        cof = torch.stack([torch.linalg.cross(r1, r2), torch.linalg.cross(r2, r0),
+                           torch.linalg.cross(r0, r1)], dim=-2)
+        det = torch.sum(r0 * cof[..., 0, :], dim=-1)
+        X = 0.5 * (X + cof / det[..., None, None])
+    return X
 
 
 def se3_exp(xi):

@@ -33,6 +33,18 @@ with a pinhole or a KB8 fisheye camera).
   that frame, as the JAX tracker does at `pipeline_depth=1`: one host read
   of the outcome scalars besides the two branch reads of the fused step.
 
+An inertial sensor ("mono-imu", "stereo-imu", "rgbd-imu") takes each
+frame's IMU packet (`process(..., imu=...)`, `tracking/vi_tracker.py`):
+before the IMU is initialized the tracker inserts a keyframe every 0.25 s
+and runs the visual stages; the inertial initialization runs after a
+keyframe once the chain is long enough, then the staged refinements. After
+it the pose is predicted from the preintegration, the fused visual step
+(K1, K2) warm-starts it and the pose-inertial optimization refines it
+(`vi_pose_opt.pose_inertial_optimize`, chained through the marginal
+prior), and each keyframe runs the visual-inertial local BA and inertial
+keyframe culling. A stereo or RGB-D inertial map is anchored only once the
+accelerometer shows excitation.
+
 With a vocabulary attached (`attach_loop_closer`) the tracker relocalizes
 a lost frame against the keyframe database (BoW candidates, PnP RANSAC,
 MLPnP, then the motion-only BA through K2), runs the loop closer after each
@@ -41,9 +53,10 @@ starts a global BA in a side thread after a loop correction
 (`mapping/global_ba.py`), whose result is reconciled into the map at a
 later keyframe.
 
-Left out of the JAX class, each with the slice that brings it: the
-background mapper (`runtime/mapper.py`) with its commits and the software
-pipeline of in-flight frames (ROADMAP Queue 1 item 10); the IMU (item 13).
+Left out of the JAX class, with the slice that brings it: the background
+mapper (`runtime/mapper.py`) with its commits and the software pipeline of
+in-flight frames (ROADMAP Queue 1 item 10). Inertial sensors run at depth
+1 in the JAX tracker too.
 """
 
 from __future__ import annotations
@@ -61,6 +74,8 @@ from ..atlas import state as atlas_state
 from ..frontend import camera as cam
 from ..frontend import matching, orb, stereo, two_view
 from ..graphopt import loop_closer as lc
+from ..imu import factors
+from ..imu import preintegration as preint_mod
 from ..mapping import global_ba, local_mapper, pipeline
 from ..ops import lie
 from ..ops.scatter import add_at
@@ -68,6 +83,7 @@ from ..place import recognition, vocab as vocab_mod
 from ..utils import verbose
 from ..utils.timing import GLOBAL_TIMER
 from . import track as track_mod
+from . import vi_pose_opt, vi_tracker
 
 NOT_INITIALIZED = 0
 OK = 1
@@ -78,16 +94,18 @@ LOST = 3
 @dataclasses.dataclass
 class TrackerConfig:
     """The fields of the JAX TrackerConfig this path reads, with its
-    defaults (`tracker.py:104-161`). The sensors "mono", "stereo" and
-    "rgbd" are ported; the inertial ones come with the inertial slice. The
+    defaults (`tracker.py:104-161`); every sensor of it is ported. The
     camera vectors, extrinsics and distortion may be tensors or anything
     numpy reads; the Tracker moves them to its device."""
 
     K: torch.Tensor = None  # camera params [8]
     kind: int = cam.PINHOLE
     img_wh: tuple = (640, 480)
-    sensor: str = "mono"            # mono | stereo | rgbd
+    sensor: str = "mono"            # mono | stereo | rgbd, each also with "-imu"
     bf: float = 0.0                 # baseline * fx (stereo / RGB-D)
+    imu_noise: dict = dataclasses.field(default_factory=lambda: dict(
+        noise_gyro=1.7e-3, noise_acc=2e-2, walk_gyro=1.9e-4, walk_acc=3e-2))
+    Tbc: np.ndarray = None          # body-from-camera extrinsics [4, 4] (identity)
     min_depth: float = 0.1
     th_depth: float = 40.0          # close-point threshold (Settings thDepth)
     depth_factor: float = 1.0       # RGB-D depth map scaling
@@ -255,7 +273,7 @@ def local_map(s: atlas_state.MapState, ref_kf: int):
 def track_frame(cfg: TrackerConfig, s: atlas_state.MapState, feats: orb.Features,
                 ref_kf: int, R_last, t_last, velocity=None, tracked=None,
                 last_inliers: int = 0, in_map=None, frame_ur=None, frame_depth=None,
-                th_depth_m: float = 0.0, feats_r=None):
+                th_depth_m: float = 0.0, feats_r=None, pred=None):
     """Track one frame against the map (`Tracker._track_frame_fused`
     without chained prediction). The pose is
     predicted by the constant-velocity model when `velocity` = (Rv, tv) is
@@ -267,12 +285,15 @@ def track_frame(cfg: TrackerConfig, s: atlas_state.MapState, feats: orb.Features
     (cfg.min_depth, th_depth_m)) into scal[2:4]. With `feats_r`, the right
     image's features of a fisheye rig (cfg.stereo_fisheye), the step adds
     the right-camera stage: the local map matched through the extrinsics
-    (K1) and the pose refined over both cameras. Returns the
+    (K1) and the pose refined over both cameras. `pred` = (R, t) replaces
+    the prediction (the IMU's, after inertial initialization). Returns the
     track_frame_visual outputs and the predicted pose (R_pred, t_pred)."""
     dev = s.device
     if in_map is None:
         in_map = local_map(s, ref_kf)
-    if velocity is not None:
+    if pred is not None:
+        R_pred, t_pred = pred
+    elif velocity is not None:
         R_pred, t_pred = lie.se3_mul(velocity[0], velocity[1], R_last, t_last)
     else:
         R_pred, t_pred = R_last, t_last
@@ -352,11 +373,7 @@ class Tracker:
     `poses`. Set `mapping_paused` for localization-only mode."""
 
     def __init__(self, cfg: TrackerConfig, device=None):
-        if cfg.sensor.endswith("-imu"):
-            raise NotImplementedError(
-                f"sensor {cfg.sensor!r}: the inertial sensors come with the inertial slice "
-                "(ROADMAP Queue 1 item 13)")
-        if cfg.sensor not in ("mono", "stereo", "rgbd"):
+        if cfg.sensor not in ("mono", "stereo", "rgbd", "mono-imu", "stereo-imu", "rgbd-imu"):
             raise ValueError(f"unknown sensor {cfg.sensor!r}")
         if device is None and torch.is_tensor(cfg.K):
             device = cfg.K.device
@@ -371,11 +388,11 @@ class Tracker:
         self.cfg = dataclasses.replace(
             cfg, K=on_dev(K_np), K_right=on_dev(cfg.K_right), R_rl=on_dev(cfg.R_rl),
             t_rl=on_dev(cfg.t_rl), dist_coeffs=on_dev(cfg.dist_coeffs))
-        if cfg.stereo_fisheye and (cfg.sensor != "stereo" or self.cfg.K_right is None
+        self.base_sensor = cfg.sensor.split("-")[0]
+        if cfg.stereo_fisheye and (self.base_sensor != "stereo" or self.cfg.K_right is None
                                    or self.cfg.R_rl is None or self.cfg.t_rl is None):
             raise ValueError("stereo_fisheye needs the stereo sensor, K_right, R_rl and t_rl")
         self.device = dev
-        self.base_sensor = cfg.sensor
         # close points lie nearer than bf * thDepth / fx (Tracking.cc:628)
         self.th_depth_m = cfg.bf * cfg.th_depth / float(K_np[0])
         self.map = empty_map(self.cfg, device=dev)
@@ -409,6 +426,13 @@ class Tracker:
         self.loop_closer = None       # LoopCloser (attach_loop_closer)
         self.gba = None               # background GlobalBARunner
         self.background_gba = True    # global BA in a side thread after a loop correction
+        self.debug_events: list[dict] = []  # inertial init / refinement history (SaveDebugData)
+        self._vi_prior = None         # ConstraintPoseImu chain (Optimizer.cc:4875)
+        self._last_avg_a = None       # the excitation gate's previous mean acceleration
+        self.imu = None
+        if cfg.sensor.endswith("-imu"):
+            Tbc = cfg.Tbc if cfg.Tbc is not None else np.eye(4, dtype=np.float32)
+            self.imu = vi_tracker.ImuState(cfg.imu_noise, _np(Tbc), dev)
 
     def attach_loop_closer(self, voc: vocab_mod.Vocabulary):
         """Enable place recognition with vocabulary `voc` (moved to the
@@ -512,6 +536,9 @@ class Tracker:
             rec.ref_kf = int(kf_new[rec.ref_kf])
         if self.last_kf_row >= 0:
             self.last_kf_row = int(kf_new[self.last_kf_row])
+        if self.imu is not None:
+            self.imu.kf_buffers = {int(kf_new[r]): b for r, b in self.imu.kf_buffers.items()}
+        self._vi_prior = None
 
         lm_new = lm_new_t.long()
         if self._tracked_lms is not None:
@@ -614,20 +641,25 @@ class Tracker:
         return torch.as_tensor(np.asarray(img) if not torch.is_tensor(img) else img,
                                dtype=torch.float32, device=self.device)
 
-    def process(self, img, timestamp: float, img_right=None, depth_map=None):
+    def process(self, img, timestamp: float, img_right=None, depth_map=None, imu=None):
         """Track one frame ([H, W] image, anything torch.as_tensor reads)
         taken at `timestamp` seconds: a stereo sensor passes the right image
         of the rectified pair as img_right, an RGB-D sensor its [H, W] depth
         map as depth_map (System::TrackStereo / TrackRGBD routing,
-        `System.cc:244,328`)."""
+        `System.cc:244,328`), an inertial sensor the [M, 7] rows (t, gx, gy,
+        gz, ax, ay, az) measured since the previous frame as imu
+        (GrabImuData, `Tracking.cc:1618`)."""
         with GLOBAL_TIMER.stage("track.adopt"):
             self._maybe_compact()
-        # timestamp sanity (Tracking.cc:1818-1855): a backwards step stores
-        # the active map and restarts in a fresh one; a gap over 1 s drops
-        # the motion model
+        if self.imu is not None:
+            self.imu.ingest(None if imu is None else np.asarray(imu))
+        # timestamp sanity (Tracking.cc:1818-1855): a backwards step, or a
+        # gap over 1 s on an inertial sensor (preintegration continuity),
+        # stores the active map and restarts in a fresh one; a gap over 1 s
+        # drops a visual tracker's motion model
         if self.last is not None and self.state != NOT_INITIALIZED:
             gap = timestamp - float(self.last["ts"])
-            if gap < -1e-9:
+            if gap < -1e-9 or (self.imu is not None and gap > 1.0):
                 self._timestamp_jump()
             elif gap > 1.0:
                 self.velocity = None
@@ -719,6 +751,14 @@ class Tracker:
         self.frames_since_kf = 0
         self.lost_count = 0
         self._tracked_lms = None
+        self._vi_prior = None
+        if self.imu is not None:
+            # the biases survive as priors of the next initialization
+            imu = self.imu
+            imu.initialized = imu.bad = False  # the reset services mbBadImu
+            imu.first_kf_ts = imu.init_ts = None
+            imu.viba_stage, imu.tinit = 0, 0.0
+            imu._cur = ([], [], [], [])
 
     def _record_frame(self, timestamp, ok, rel=None):
         if self.last is None or self.last_kf_row < 0:
@@ -735,11 +775,18 @@ class Tracker:
     # initialization (MonocularInitialization, Tracking.cc:2448-2525)
     # ------------------------------------------------------------------
     def _try_initialize(self, feats, timestamp) -> bool:
+        ref_ts = None if self.init_ref is None else self.init_ref[1]
         res = initialize_monocular(self.cfg, self.map, self.init_ref, feats, timestamp,
                                    seed=len(self.trajectory))
         self.init_ref = res.init_ref
         if not res.success:
             return False
+        if self.imu is not None:
+            # keyframe 1's interval is exactly (ref_ts, timestamp]: what was
+            # recorded before the reference frame precedes the map
+            self.imu.trim_before(ref_ts)
+            self.imu.first_kf_ts = ref_ts
+            self.imu.commit_keyframe(res.kf1, timestamp)
         self.map = res.map
         self.state = OK
         self.last = {"R": res.R, "t": res.t, "feats": feats, "ts": timestamp}
@@ -763,6 +810,8 @@ class Tracker:
         n_kp, n_depth = (int(v) for v in torch.stack([feats.valid.sum(), has_depth.sum()]).tolist())
         if n_kp < 100 or n_depth < 50:
             return False
+        if self.imu is not None and not self._excited():
+            return False
         dev = self.device
         f32 = dict(dtype=torch.float32, device=dev)
         s, kf0 = atlas_ops.add_keyframe(
@@ -776,6 +825,10 @@ class Tracker:
         s, _ = atlas_ops.add_landmarks(s, X, feats.descriptors, col, has_depth, col,
                                        torch.arange(F, dtype=torch.int32, device=dev))
         self.map = atlas_state.update_landmark_stats(s)
+        if self.imu is not None:
+            # the intervals start at this keyframe; the backlog is dropped
+            self.imu.trim_before(timestamp)
+            self.imu.first_kf_ts = timestamp
         self.state = OK
         self.last = {"R": torch.eye(3, **f32), "t": torch.zeros(3, **f32), "feats": feats,
                      "ts": timestamp}
@@ -784,6 +837,21 @@ class Tracker:
         self.last_kf_inliers = n_depth
         self.frames_since_kf = 0
         self._map_version += 1
+        return True
+
+    def _excited(self) -> bool:
+        """Stereo / RGB-D inertial: the map is anchored only once the mean
+        acceleration of this frame's window differs from the previous
+        frame's by at least 0.5 m/s^2 (a static start leaves gravity and
+        the biases unobservable, `Tracking.cc:2340-2350`). One host read."""
+        pint = self.imu.preint_frame()
+        avg_a = None if pint is None else pint.avgA.cpu().numpy()
+        last_a, self._last_avg_a = self._last_avg_a, avg_a
+        if avg_a is None or last_a is None:
+            return False
+        if float(np.linalg.norm(avg_a - last_a)) < 0.5:
+            verbose.print_mess("not enough acceleration", verbose.VERBOSITY_NORMAL)
+            return False
         return True
 
     # ------------------------------------------------------------------
@@ -795,9 +863,10 @@ class Tracker:
         step, or None when that keyframe changed."""
         cfg = self.cfg
         s = self.map
+        imu_active = self.imu is not None and self.imu.initialized
         # a visual tracker that is lost goes straight to relocalization
-        # (Tracking.cc:1981-2012)
-        if self.state in (RECENTLY_LOST, LOST):
+        # (Tracking.cc:1981-2012); an initialized IMU keeps predicting
+        if self.state in (RECENTLY_LOST, LOST) and not imu_active:
             if self._try_relocalize(feats):
                 self.last["ts"] = timestamp
                 return True, None
@@ -808,8 +877,13 @@ class Tracker:
             self._new_map_if_lost()
             return False, None
 
+        # the IMU's prediction (PredictStateIMU, Tracking.cc:1738), else the
+        # constant-velocity motion model (:2862-2877)
+        pred = self._imu_prediction() if imu_active else None
         if self.mapping_paused and self._frame_depth is not None:
-            return self._track_frame_localization(feats, timestamp, s), None
+            return self._track_frame_localization(feats, timestamp, s, pred), None
+        if imu_active:
+            return self._track_frame_inertial(feats, timestamp, s, pred), None
 
         kf_row = self.last_kf_row
         with GLOBAL_TIMER.stage("track.fused_step"):
@@ -847,13 +921,156 @@ class Tracker:
         self.map = dataclasses.replace(self.map, lm_visible=self.map.lm_visible + out["vis32"],
                                        lm_found=self.map.lm_found + out["fnd32"])
         with GLOBAL_TIMER.stage("track.kf_decision"):
-            need = self._need_new_keyframe(n_inliers)
+            need = self._need_new_keyframe(n_inliers, timestamp)
         if need:
             with GLOBAL_TIMER.stage("track.kf_insert_sync"):
                 self._insert_keyframe(feats, timestamp, n_inliers)
         # the step's relative pose holds while the reference keyframe does
         rel = (out["R_rel"], out["t_rel"]) if kf_row == self.last_kf_row else None
         return True, rel
+
+    # ------------------------------------------------------------------
+    # inertial tracking (Tracker._track_frame's IMU branch)
+    # ------------------------------------------------------------------
+    def _imu_prediction(self):
+        """(R, t) Tcw predicted from the last pose, velocity and biases over
+        this frame's window, or None without one (the motion model then
+        predicts). Sets the IMU velocity to the predicted one."""
+        imu = self.imu
+        with GLOBAL_TIMER.stage("track.imu_predict"):
+            pint = imu.preint_frame()
+            if pint is None:
+                return None
+            Rb, tb = vi_tracker.cam_to_body(self.last["R"], self.last["t"], imu.Rbc, imu.tbc)
+            Rb2, tb2, v2 = preint_mod.predict_state(pint, Rb, tb, imu.vel, imu.bg, imu.ba)
+            imu.vel = v2
+            return vi_tracker.body_to_cam(Rb2, tb2, imu.Rbc, imu.tbc)
+
+    def _track_frame_inertial(self, feats, timestamp, s, pred) -> bool:
+        """An IMU-initialized frame: the fused visual step (K1, K2) from the
+        IMU's prediction warm-starts the pose, the pose-inertial
+        optimization re-solves it with the preintegration, bias and prior
+        terms (PoseInertialOptimizationLast{KeyFrame,Frame}, Tracking.cc:
+        2970-2992), one host read of the outcome scalars. A non-finite
+        inertial solve falls back to the visual pose."""
+        cfg = self.cfg
+        imu = self.imu
+        R_last, t_last = self.last["R"], self.last["t"]
+        with GLOBAL_TIMER.stage("track.fused_step"):
+            out = track_frame(
+                cfg, s, feats, self.last_kf_row, R_last, t_last, velocity=self.velocity,
+                tracked=self._tracked_lms, last_inliers=self.last_inliers,
+                in_map=self._local_map_mask(s), frame_ur=self._frame_ur,
+                frame_depth=self._frame_depth, th_depth_m=self.th_depth_m,
+                feats_r=self._frame_feats_r, pred=pred)
+        with GLOBAL_TIMER.stage("track.vi_refine"):
+            vi = self._vi_refine_fused(s, feats, out)
+        with GLOBAL_TIMER.stage("track.vi_fetch"):
+            scal = (out["scal"] if vi is None else vi[2]).tolist()
+        n_inliers = scal[0]
+        n_vi = scal[4] if vi is not None else -1
+        if n_vi >= 0:
+            cur, _, _, H15 = vi
+            n_inliers = n_vi
+            R2, t2 = vi_tracker.body_to_cam(cur["R"], cur["t"], imu.Rbc, imu.tbc)
+            imu.vel, imu.bg, imu.ba = cur["v"], cur["bg"], cur["ba"]
+            self._vi_prior = {"state": cur, "H": H15, "version": self._map_version}
+        else:
+            R2, t2 = out["R"], out["t"]
+        self.last_inliers = n_inliers
+        self._census = (scal[2], scal[3]) if self._frame_depth is not None else None
+        if n_inliers < cfg.min_inliers:
+            self.lost_count += 1
+            self.state = RECENTLY_LOST if self.lost_count < 5 else LOST
+            self.last = {"R": out["R_pred"], "t": out["t_pred"], "feats": feats,
+                         "ts": timestamp}
+            self.velocity = None
+            self._tracked_lms = None
+            self._vi_prior = None
+            ok = self._try_relocalize(feats)
+            if not ok:
+                self._new_map_if_lost()
+            return ok
+        self.lost_count = 0
+        self.state = OK
+        # motion model: velocity = T_cur T_last^-1 (Tracking.cc:2207)
+        Rv, tv = lie.se3_mul(R2, t2, *lie.se3_inv(R_last, t_last))
+        self.velocity = (lie.normalize_rotation(Rv), tv)
+        self.last = {"R": R2, "t": t2, "feats": feats, "ts": timestamp}
+        self.frames_since_kf += 1
+        self._tracked_lms = out["tracked"]
+        self._feat_lm = out["feat_lm"]
+        self.map = dataclasses.replace(self.map, lm_visible=self.map.lm_visible + out["vis32"],
+                                       lm_found=self.map.lm_found + out["fnd32"])
+        with GLOBAL_TIMER.stage("track.kf_decision"):
+            need = self._need_new_keyframe(n_inliers, timestamp)
+        if need:
+            with GLOBAL_TIMER.stage("track.kf_insert_sync"):
+                self._insert_keyframe(feats, timestamp, n_inliers)
+        return True
+
+    def _vi_pose_optimize(self, s, uv, ur, Xw, inv_sig2, valid, R0, t0):
+        """PoseInertialOptimizationLast{KeyFrame,Frame} dispatch
+        (Tracking.cc:2970-2992): after a map update, against the last
+        keyframe's fixed state over the window since it; otherwise against
+        the previous frame through the marginal ConstraintPoseImu prior.
+        From the pose (R0, t0) Tcw and the IMU's velocity and biases.
+        Returns the device outputs of pose_inertial_optimize, or None
+        without a window."""
+        imu = self.imu
+        cfg = self.cfg
+        prior = self._vi_prior
+        use_prior = prior is not None and prior["version"] == self._map_version
+        if use_prior:
+            if imu.frame_dt() <= 0.0:
+                return None
+            pint = imu.preint_frame()
+            prev = prior["state"]
+        else:
+            if self.last_kf_row < 0 or imu.since_kf_dt() <= 0.0:
+                return None
+            kf = self.last_kf_row
+            bg_kf, ba_kf = s.kf_bg[kf], s.kf_ba[kf]
+            pint = imu.preint_since_kf(bg=bg_kf, ba=ba_kf)
+            Rb, tb = vi_tracker.cam_to_body(s.kf_R[kf], s.kf_t[kf], imu.Rbc, imu.tbc)
+            prev = {"R": Rb, "t": tb, "v": s.kf_vel[kf], "bg": bg_kf, "ba": ba_kf}
+        if pint is None:
+            return None
+        d, info = factors.preint_edge_data(pint)
+        Rb0, tb0 = vi_tracker.cam_to_body(R0, t0, imu.Rbc, imu.tbc)
+        cur0 = {"R": Rb0, "t": tb0, "v": imu.vel, "bg": imu.bg, "ba": imu.ba}
+        kwargs = {}
+        if use_prior:
+            kwargs = dict(prior_data={"R0": prev["R"], "t0": prev["t"], "v0": prev["v"],
+                                      "bg0p": prev["bg"], "ba0p": prev["ba"]},
+                          prior_H=prior["H"], free_prev=True)
+        return vi_pose_opt.pose_inertial_optimize(
+            cfg.kind, cfg.K, cfg.bf, imu.Rbc, imu.tbc, prev, cur0, d, info,
+            factors.rw_info6(pint), uv, ur, Xw, inv_sig2, valid, **kwargs)
+
+    def _vi_refine_fused(self, s, feats, out):
+        """The pose-inertial refinement chained on the fused visual step's
+        device outputs over its per-feature edges (uv = keypoint, Xw = its
+        bound landmark). Returns (cur_state, inlier [F], scal5, H15) with
+        scal5 = [n_visual, vel_poisoned, census tracked, census untracked,
+        n_vi], n_vi = -1 for a non-finite solve; or None without a window.
+        Reads nothing back to the host."""
+        feat_lm = out["feat_lm"]
+        okf = (feat_lm >= 0) & feats.valid
+        Xw = s.lm_pos[torch.clamp(feat_lm, 0, s.lmax - 1).long()]
+        if self._frame_ur is not None:
+            ur = torch.where(okf, self._frame_ur, -1.0)
+        else:
+            ur = -torch.ones((feats.xy.shape[0],), dtype=torch.float32, device=self.device)
+        vi = self._vi_pose_optimize(s, feats.xy, ur, Xw, self._inv_sigma2(feats.octave), okf,
+                                    out["R"], out["t"])
+        if vi is None:
+            return None
+        cur, inlier_f, n, H15 = vi
+        finite = torch.isfinite(cur["t"]).all() & torch.isfinite(cur["v"]).all()
+        n_vi = torch.where(finite, n.to(torch.int64), -1)
+        scal5 = torch.cat([out["scal"].to(torch.int64), n_vi.reshape(1)])
+        return cur, inlier_f, scal5, H15
 
     def _match_and_optimize(self, s, feats, R0, t0, lm_mask, radius):
         """Projection search and motion-only BA of the map against the frame
@@ -881,7 +1098,7 @@ class Tracker:
         n_levels = self.scale_factors.shape[0]
         return 1.0 / self.scale_factors[torch.clamp(octave, 0, n_levels - 1).long()] ** 2
 
-    def _track_frame_localization(self, feats, timestamp, s) -> bool:
+    def _track_frame_localization(self, feats, timestamp, s, pred=None) -> bool:
         """Localization-only mode with a depth sensor (mbOnlyTracking,
         `Tracker._track_frame_localization`): the pose against the frozen
         map (a coarse match and pose BA at the predicted pose, then a fine
@@ -892,10 +1109,12 @@ class Tracker:
         or normal, and live one frame. Tracking health is judged on all
         inliers, as the JAX tracker does (it computes the map inliers but
         does not use them). No keyframe is made and the map is not
-        touched."""
+        touched. `pred` is the IMU's prediction, where there is one."""
         cfg = self.cfg
         R_last, t_last = self.last["R"], self.last["t"]
-        if self.velocity is not None:
+        if pred is not None:
+            R_pred, t_pred = pred
+        elif self.velocity is not None:
             R_pred, t_pred = lie.se3_mul(self.velocity[0], self.velocity[1], R_last, t_last)
         else:
             R_pred, t_pred = R_last, t_last
@@ -964,21 +1183,36 @@ class Tracker:
             self.init_ref = None
             self.last_kf_row = -1
 
-    def _need_new_keyframe(self, n_inliers: int) -> bool:
+    def _last_kf_ts(self) -> float:
+        """Host timestamp of the reference keyframe, cached per map version."""
+        if self.last_kf_row < 0:
+            return -1e9
+        return self._cached("kf_ts", (self._map_version, self.last_kf_row),
+                            lambda: float(self.map.kf_timestamp[self.last_kf_row]))
+
+    def _need_new_keyframe(self, n_inliers: int, timestamp: float) -> bool:
         """NeedNewKeyFrame (`Tracking.cc:3064-3187`) with synchronous
         mapping (the mapper is always idle, so the JAX tracker's rules for a
-        busy mapper never apply): nothing while mapping is paused; c1a (max
-        frames), c1b (min frames), c1c for a depth sensor (weak tracking, or
-        fewer than 100 tracked and more than 70 untracked close points,
-        `:3106-3128`), c2 (tracked ratio against the reference keyframe's
-        map points observed >= 3 times: 0.9 mono, else kf_tracked_ratio, 0.4
-        below two keyframes; the close-point deficit; or the
-        kf_tracked_ratio decay against the inliers at the last insertion),
-        and the cadence ceiling (at most kf_max_frames frames without a
-        keyframe)."""
+        busy mapper never apply): nothing while mapping is paused; before
+        the IMU is initialized an inertial sensor inserts every 0.25 s
+        (`:3066-3074`); c1a (max frames), c1b (min frames), c1c for a
+        visual depth sensor (weak tracking, or fewer than 100 tracked and
+        more than 70 untracked close points, `:3106-3128`), c2 (tracked
+        ratio against the reference keyframe's map points observed >= 3
+        times: 0.9 mono, 0.75 / 0.9 mono-inertial above / below 350
+        inliers, else kf_tracked_ratio, 0.4 below two keyframes; the
+        close-point deficit; or the kf_tracked_ratio decay against the
+        inliers at the last insertion), the cadence ceiling (at most
+        kf_max_frames frames without a keyframe), and for an inertial
+        sensor c3 (0.5 s since the last keyframe) and, mono-inertial, c4
+        (thin tracking: between min_inliers and 75 inliers). An inertial
+        keyframe is never refused."""
         cfg = self.cfg
         if self.mapping_paused:
             return False
+        last_kf_ts = self._last_kf_ts()
+        if self.imu is not None and not self.imu.initialized:
+            return timestamp - last_kf_ts >= 0.25
         n_kfs = self._n_kf_cache()
         # relocalization cooldown (Tracking.cc:3091-3094)
         if (len(self.trajectory) < self._last_reloc_frame + cfg.kf_max_frames
@@ -998,18 +1232,24 @@ class Tracker:
                                                         min_obs)), 1))
         else:
             ref_matches = max(self.last_kf_inliers, 1)
-        if self.base_sensor == "mono":
+        if cfg.sensor == "mono":
             th_ratio = 0.9  # Tracking.cc:3144
+        elif cfg.sensor == "mono-imu":
+            th_ratio = 0.75 if n_inliers > 350 else 0.90
         else:
             th_ratio = cfg.kf_tracked_ratio if n_kfs >= 2 else 0.4
         c1a = self.frames_since_kf >= cfg.kf_max_frames
         c1b = self.frames_since_kf >= cfg.kf_min_frames
-        c1c = depth_sensor and (n_inliers < 0.25 * ref_matches or need_close)
+        c1c = (depth_sensor and self.imu is None
+               and (n_inliers < 0.25 * ref_matches or need_close))
         c2 = ((n_inliers < th_ratio * ref_matches or need_close
                or n_inliers < cfg.kf_tracked_ratio * max(self.last_kf_inliers, 1))
               and n_inliers > cfg.min_inliers)
         c_ceiling = c1a and n_inliers > cfg.min_inliers
-        return ((c1a or c1b or c1c) and c2) or c_ceiling
+        c3 = self.imu is not None and timestamp - last_kf_ts >= 0.5
+        c4 = (cfg.sensor == "mono-imu"
+              and (cfg.min_inliers < n_inliers < 75 or self.state == RECENTLY_LOST))
+        return ((c1a or c1b or c1c) and c2) or c_ceiling or c3 or c4
 
     # ------------------------------------------------------------------
     def _insert_keyframe(self, feats, timestamp, n_inliers: int):
@@ -1029,6 +1269,9 @@ class Tracker:
             feat_desc=feats.descriptors, feat_valid=feats.valid, feat_lm=self._feat_lm,
             feat_ur=self._frame_ur, feat_depth=self._frame_depth, n_inliers=n_inliers,
         )
+        if self.imu is not None:
+            self._insert_keyframe_inertial(pkg, timestamp, n_inliers)
+            return
         dev = self.device
         with GLOBAL_TIMER.stage_sync("map.pre", dev):
             s, kf, ba_rows, n_fixed = pipeline.run_pre_stage(
@@ -1041,14 +1284,93 @@ class Tracker:
         self.map = s
         self._finish_keyframe(kf, n_inliers)
 
+    def _insert_keyframe_inertial(self, pkg, timestamp, n_inliers: int):
+        """The inertial sensors' synchronous keyframe (`Tracker.
+        _insert_keyframe`'s IMU path, the stage helpers of
+        mapping/pipeline.py): insertion, the interval commit, the bad-IMU
+        check, triangulation, the fuse over the last 4 keyframes (K1), the
+        local BA (visual-inertial once the IMU is initialized), culling,
+        then the inertial initialization or the staged refinement."""
+        cfg = self.cfg
+        imu = self.imu
+        dev = self.device
+        sf = self.scale_factors
+        with GLOBAL_TIMER.stage_sync("map.insert", dev):
+            s, kf = pipeline.insert_keyframe_pkg(self.map, pkg, cfg, self.base_sensor,
+                                                 self.last_kf_row)
+            imu.commit_keyframe(kf, timestamp)
+        if imu.initialized and imu.viba_stage < 2 and self._bad_imu(s, kf, timestamp):
+            return
+        with GLOBAL_TIMER.stage_sync("map.triangulate", dev):
+            s = pipeline.triangulate_mono(s, kf, cfg, sf, self.last_kf_row)
+        with GLOBAL_TIMER.stage_sync("map.fuse", dev):
+            s = pipeline.fuse_recent(s, cfg, sf)
+        rows, n_fixed = pipeline.ba_window(s, cfg)
+        ran_vi_ba = False
+        if imu.initialized:
+            with GLOBAL_TIMER.stage_sync("map.vi_local_ba", dev):
+                self.map = s
+                ran_vi_ba = vi_tracker.run_vi_local_ba(self, rows, n_fixed)
+                s = self.map
+        if not ran_vi_ba:
+            with GLOBAL_TIMER.stage_sync("map.local_ba", dev):
+                s = pipeline.run_visual_ba(s, cfg, sf, rows, n_fixed, self.base_sensor)
+        with GLOBAL_TIMER.stage_sync("map.culling", dev):
+            self.map = pipeline.cull(s, cfg, rows, use_imu=True)
+            if imu.initialized and int(self.map.n_kf) > cfg.local_window + 4:
+                vi_tracker.cull_keyframes_inertial(self, rows[:cfg.local_window + 4])
+        # the inertial initialization once the chain allows it, then the
+        # staged refinement (LocalMapping.cc:181-242)
+        if not imu.initialized:
+            with GLOBAL_TIMER.stage_sync("map.imu_init", dev):
+                moved = vi_tracker.try_initialize_imu(self)
+        else:
+            with GLOBAL_TIMER.stage_sync("map.imu_refine", dev):
+                moved = vi_tracker.try_refine_imu(self)
+        if moved:
+            self.last["R"], self.last["t"] = self.map.kf_R[kf], self.map.kf_t[kf]
+            self._vi_prior = None  # gauge changed
+        self._finish_keyframe(kf, n_inliers)
+
+    def _bad_imu(self, s, kf: int, timestamp: float) -> bool:
+        """The bad-IMU check (LocalMapping.cc:130-146) before inertial BA2:
+        the init time accumulates only while the last three keyframes'
+        camera centres move more than 0.05; under 0.02 of motion within
+        10 s of init time the initialization was under-excited and the
+        active map is reset. One host read of the three keyframes."""
+        imu = self.imu
+        prev = int(s.kf_prev[kf])
+        pprev = int(s.kf_prev[prev]) if prev >= 0 else -1
+        if prev < 0 or pprev < 0:
+            return False
+        rows = torch.tensor([kf, prev, pprev], device=s.device)
+        R, t, ts = (a.double().cpu().numpy() for a in (s.kf_R[rows], s.kf_t[rows],
+                                                        s.kf_timestamp[rows]))
+        cs = [-(R[i].T @ t[i]) for i in range(3)]
+        dist = np.linalg.norm(cs[0] - cs[1]) + np.linalg.norm(cs[1] - cs[2])
+        if dist > 0.05:
+            imu.tinit += timestamp - float(ts[1])
+        if imu.tinit < 10.0 and dist < 0.02:
+            verbose.print_mess("Not enough motion for initializing. Reseting...",
+                               verbose.VERBOSITY_NORMAL)
+            imu.bad = True
+            self.debug_events.append({"event": "bad_imu_reset", "t": timestamp})
+            self._reset_active_map()
+            return True
+        return False
+
     def _finish_keyframe(self, kf: int, n_inliers: int):
         """Tail of keyframe insertion: a finished background global BA
         reconciled into the map (the current pose moved with the last
         keyframe's correction; a failed campaign raises here), loop / merge
-        detection on the new keyframe, a global BA launched in a side thread
-        after a loop correction (at most 200 keyframes; a correction while
-        one runs aborts it, `LoopClosing.cc:1199-1207`), then the pose
-        refreshed from the optimized keyframe and the bookkeeping."""
+        detection on the new keyframe (told whether the IMU is initialized
+        and its refinement stage), after a map merge of an inertial map the
+        visual-inertial BA over the last 10 keyframes (MergeInertialBA,
+        `LoopClosing.cc:1783`), a global BA launched in a side thread after
+        a loop correction of a visual map (at most 200 keyframes; a
+        correction while one runs aborts it, `LoopClosing.cc:1199-1207`),
+        then the pose refreshed from the optimized keyframe and the
+        bookkeeping."""
         cfg = self.cfg
         if self.gba is not None and self.gba.failed:
             raise RuntimeError("the background global BA failed") from self.gba.error
@@ -1062,17 +1384,28 @@ class Tracker:
             self.map = s
             self.velocity = None
             self._tracked_lms = None
+            self._vi_prior = None
             self._map_version += 1
         if self.loop_closer is not None:
             loops_before = self.loop_closer.n_loops
+            merges_before = self.loop_closer.n_merges
+            self.loop_closer.inertial = (None if self.imu is None
+                                         else (self.imu.initialized, self.imu.viba_stage))
             with GLOBAL_TIMER.stage_sync("loop.on_keyframe", self.device):
                 self.map, closed = self.loop_closer.on_keyframe(self.map, kf, cfg.kind, cfg.K)
             if closed:
                 self._tracked_lms = None
+                self._vi_prior = None
+                if (self.loop_closer.n_merges > merges_before and self.imu is not None
+                        and self.imu.initialized):
+                    n_kf = int(self.map.n_kf)
+                    vi_tracker.run_vi_local_ba(self, np.arange(n_kf - min(n_kf, 10), n_kf),
+                                               n_fixed=1)
                 if self.loop_closer.n_loops > loops_before:
                     if self.gba is not None and self.gba.running:
                         self.gba.request_abort()
-                    elif self.background_gba and int(self.map.n_kf) < 200:
+                    elif (self.background_gba and self.imu is None
+                          and int(self.map.n_kf) < 200):
                         self.gba = global_ba.GlobalBARunner(cfg.K, cfg.kind)
                         self.gba.launch(self.map)
         s = self.map

@@ -13,6 +13,12 @@ reference-keyframe fallback are forced once each (a poisoned velocity, an
 emptied map mask), and pose_optimize_two_cam is held against JAX on a
 pinhole rig.
 
+Those comparisons compile the JAX tracker's init and fused step (~35 s)
+and run behind `slow`. Tier-1 runs the same frames through the port
+alone (its own features and minimal sets): the init's map, the two
+tracked frames and the two forced branches, each with the gates of its
+JAX comparison that do not name the JAX result.
+
 The JAX side runs with one repair that the port makes: add_observations
 writes only its ok entries. The JAX function also writes the entries that
 are not ok back, which on a duplicate feature index undoes an ok binding
@@ -100,6 +106,7 @@ def boot():
     return dict(jt=jt, jf=jf, tf=tf, tcfg=tcfg, res=r1)
 
 
+@pytest.mark.slow
 def test_initialize_monocular_matches_jax(boot):
     jt, res = boot["jt"], boot["res"]
     assert res.success and (res.kf0, res.kf1) == (0, 1) == (0, jt.last_kf_row)
@@ -133,6 +140,7 @@ def _agree(out_t, out_j):
     return n_t
 
 
+@pytest.mark.slow
 def test_tracked_frames_match_jax(boot):
     jt, tf, jf, cfg, res = boot["jt"], boot["tf"], boot["jf"], boot["tcfg"], boot["res"]
     js = jt.map
@@ -184,6 +192,7 @@ def _port(a):
     return T(a) if isinstance(a, jax.Array) else a
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("case", ["poisoned_velocity", "empty_map_mask"])
 def test_forced_branches_match_jax(boot, case, monkeypatch):
     s = boot["jt"].map
@@ -274,3 +283,94 @@ def test_add_observations_keeps_the_ok_binding():
                               T(feat), T(rows), T(ok))
     assert t.kf_feat_lm[1].tolist() == [-1, -1, -1, 10, -1, 11, -1, -1]
     assert np.asarray(j.kf_feat_lm[1]).tolist() == [-1, -1, -1, -1, -1, 11, -1, -1]
+
+
+# ---------------------------------------------------------------------------
+# Tier-1: the same frames through the port alone
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def port_boot():
+    from orb_slam3_tpu_torch.frontend import orb as torb
+
+    scene = PlaneScene(K_NP, img_wh=WH, two_planes=True, seed=0)
+    R_gt, t_gt = orbit_trajectory(max(FRAMES) + 1)
+    ocfg = torb.OrbConfig(n_features=300, n_levels=4)
+    tf = {i: torb.extract(torch.from_numpy(scene.render(R_gt[i], t_gt[i])), ocfg)
+          for i in FRAMES}
+    tcfg = ttrk.TrackerConfig(K=convert.camera(K_NP, "cpu"), img_wh=WH, orb=ocfg, kmax=8,
+                              lmax=1024, local_window=4)
+    s = ttrk.empty_map(tcfg, device="cpu")
+    r0 = ttrk.initialize_monocular(tcfg, s, None, tf[0], 0.0)
+    res = ttrk.initialize_monocular(tcfg, s, r0.init_ref, tf[5], 5.0, seed=0)
+    return dict(tf=tf, tcfg=tcfg, res=res, R_gt=R_gt)
+
+
+def test_initialize_monocular_on_the_port(port_boot):
+    res = port_boot["res"]
+    assert res.success and (res.kf0, res.kf1) == (0, 1)
+    ts = res.map
+    n = int(ts.lm_valid.sum())
+    assert int(ts.n_kf) == 2 and n > 50 and res.n_landmarks == n
+    # keyframe 1 observes every landmark; each was made from a reference feature
+    assert int((ts.kf_feat_lm[1] >= 0).sum()) == int((ts.kf_feat_lm[0] >= 0).sum()) == n
+    # keyframe 1's rotation against the truth (the orbit's yaw over 5 frames)
+    R_gt = port_boot["R_gt"]
+    R_rel = R_gt[5] @ R_gt[0].T
+    cos = (np.trace(ts.kf_R[1].numpy().astype(np.float64) @ R_rel.T) - 1.0) / 2.0
+    assert np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))) < 0.5
+    for name in ("lm_normal", "lm_max_dist", "lm_min_dist", "lm_pos"):
+        assert torch.isfinite(getattr(ts, name)[ts.lm_valid]).all(), name
+
+
+def test_tracked_frames_on_the_port(port_boot):
+    tf, cfg, res = port_boot["tf"], port_boot["tcfg"], port_boot["res"]
+    R_last, t_last = res.R, res.t
+    vel, tracked, last_n = None, None, 0
+    for i in (6, 7):
+        out = ttrk.track_frame(cfg, res.map, tf[i], res.kf1, R_last, t_last, velocity=vel,
+                               tracked=tracked, last_inliers=last_n)
+        n = int(out["n"])
+        assert n >= 50 and not bool(out["vel_poisoned"])
+        vel, tracked, last_n = (out["Rv"], out["tv"]), out["tracked"], n
+        R_last, t_last = out["R"], out["t"]
+
+
+@pytest.mark.parametrize("case", ["poisoned_velocity", "empty_map_mask"])
+def test_forced_branches_on_the_port(port_boot, case, monkeypatch):
+    """The widened retry and the reference-keyframe fallback on the port's
+    own map, with the kernel calls of the JAX comparison above."""
+    tf, cfg, res = port_boot["tf"], port_boot["tcfg"], port_boot["res"]
+    s = res.map
+    R_kf, t_kf = s.kf_R[1], s.kf_t[1]
+    in_map = ttrk.local_map(s, 1)
+    f = tf[6]
+    if case == "poisoned_velocity":
+        R_pred, t_pred, have_vel, last_n = R_kf, t_kf + torch.tensor([0.3, 0.0, 0.0]), True, 200
+    else:
+        in_map, R_pred, t_pred, have_vel, last_n = torch.zeros_like(in_map), R_kf, t_kf, False, 0
+    calls = {"k1": 0, "k2": []}
+    k1_plain, k2_plain = tmk.search_by_projection_plain, tpk.pose_ba_plain
+
+    def count_k1(*a, **kw):
+        calls["k1"] += 1
+        return k1_plain(*a, **kw)
+
+    def count_k2(*a, **kw):
+        calls["k2"].append(a[3].shape[1])
+        return k2_plain(*a, **kw)
+
+    monkeypatch.setattr(tmk, "search_by_projection_plain", count_k1)
+    monkeypatch.setattr(tpk, "pose_ba_plain", count_k2)
+    out = ttrack.track_frame_visual(
+        0, cfg.K, 0.0, s.lm_pos, s.lm_desc, in_map, s.lm_max_dist, s.lm_min_dist, s.lm_normal,
+        s.kf_feat_desc[1], (s.kf_feat_lm[1] >= 0) & s.kf_feat_valid[1], s.kf_feat_lm[1],
+        f.xy, f.descriptors, f.octave, f.valid, -torch.ones(s.fmax), R_pred, t_pred, R_kf, t_kf,
+        have_vel, torch.zeros(s.lmax, dtype=torch.bool), last_n, 15.0, 4.0, 15,
+        cfg.scale_factors(), float(WH[0]), float(WH[1]), use_stereo=False, R_kf=R_kf, t_kf=t_kf)
+    if case == "poisoned_velocity":
+        assert bool(out["vel_poisoned"]) and int(out["n"]) >= 50
+        assert calls == {"k1": 3, "k2": [1024, 1024, 1024]}
+    else:
+        assert int(out["n"]) == 0
+        assert calls == {"k1": 3, "k2": [1024, 1024, 300, 1024]}

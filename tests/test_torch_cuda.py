@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+plain-torch paths around them (the depth frontend, KB8, the inertial
+solvers) on the card against the CPU, on a card.
 
 Imports neither jax nor the JAX package, so it runs on a machine with
 PyTorch and a CUDA card alone:
@@ -716,3 +718,185 @@ def test_k2_at_the_relocalization_call(cuda, monkeypatch):
     torch.testing.assert_close(R_g, R_r.cpu(), atol=1e-5, rtol=0)
     torch.testing.assert_close(t_g, t_r.cpu(), atol=1e-4, rtol=0)
     torch.testing.assert_close(R2.cpu(), R_gt, atol=2e-3, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the inertial path: the pose-inertial optimization and the VI local BA
+# (plain torch) on the card against the CPU, and K1 / K2 at the inertial
+# tracking site (N = lmax = 8192 landmarks, M = 1000 keypoints, from the
+# IMU's prediction)
+# ---------------------------------------------------------------------------
+
+def _body_states(n_frames):
+    """Body states (camera = body) and IMU packets of entry's
+    vi_render_trajectory: (R_wb [N,3,3], p [N,3], v [N,3] by central
+    differences, packets)."""
+    from orb_slam3_tpu_torch import entry
+
+    R_cw, t_cw, packets = entry.vi_render_trajectory(n_frames + 1)
+    R_wb = np.swapaxes(R_cw, 1, 2)
+    p = -np.einsum("nij,ni->nj", R_cw, t_cw)
+    v = np.gradient(p, 0.1, axis=0)
+    return R_wb[:n_frames], p[:n_frames], v[:n_frames], packets
+
+
+def _window(packets, noise, bg=None):
+    """The packets concatenated and preintegrated on the CPU."""
+    from orb_slam3_tpu_torch.imu import preintegration as pre
+
+    rows = np.concatenate(packets)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))  # noqa: E731
+    return pre.integrate(f(rows[:, 4:7]), f(rows[:, 1:4]), f(np.full(len(rows), 0.005)),
+                         torch.ones(len(rows)), torch.zeros(3) if bg is None else bg,
+                         torch.zeros(3), **noise)
+
+
+VI_NOISE = dict(noise_gyro=1.7e-3, noise_acc=2e-2, walk_gyro=1.9e-4, walk_acc=3e-2)
+K_VI = (350.0, 350.0, 256.0, 192.0)
+
+
+def _vi_pose_case(variant, seed=0, n=600):
+    from orb_slam3_tpu_torch.imu import factors
+
+    R_wb, p, v, packets = _body_states(3)
+    win = _window(packets[2:3], VI_NOISE)
+    data, info = factors.preint_edge_data(win)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))  # noqa: E731
+    z3 = torch.zeros(3)
+    prev = {"R": f(R_wb[1]), "t": f(p[1]), "v": f(v[1]), "bg": z3, "ba": z3}
+    rng = np.random.default_rng(seed)
+    Xc = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1, 1, n), rng.uniform(4, 9, n)], -1)
+    Xw = Xc @ R_wb[2].T + p[2]
+    uv = Xc[:, :2] / Xc[:, 2:] * np.array(K_VI[:2]) + np.array(K_VI[2:])
+    uv += 0.5 * rng.standard_normal(uv.shape)
+    uv[:40] += 40.0  # outliers
+    bf = 40.0 if variant == "stereo" else 0.0
+    ur = np.where(np.arange(n) % 2 == 0, uv[:, 0] - bf / Xc[:, 2], -1.0) if bf else -np.ones(n)
+    R0, t0 = lie.se3_rplus(f(R_wb[2]), f(p[2]), f(rng.normal(0, 0.02, 6)))
+    cur = {"R": R0, "t": t0, "v": f(v[2] + rng.normal(0, 0.1, 3)), "bg": z3, "ba": z3}
+    kw = {}
+    if variant == "last_frame":
+        kw = dict(prior_data={"R0": prev["R"], "t0": prev["t"], "v0": prev["v"],
+                              "bg0p": z3, "ba0p": z3},
+                  prior_H=torch.diag(f(np.r_[np.full(6, 1e3), np.full(3, 1e2),
+                                             np.full(6, 1e5)])), free_prev=True)
+    args = (0, f(list(K_VI) + [0.0] * 4), bf, torch.eye(3), torch.zeros(3), prev, cur, data,
+            info, factors.rw_info6(win), f(uv), f(ur), f(Xw), torch.ones(n),
+            torch.ones(n, dtype=torch.bool))
+    return args, kw
+
+
+def _to(x, dev):
+    """Every tensor of x (nested tuples, lists and dicts) on dev."""
+    if isinstance(x, dict):
+        return {k: _to(v, dev) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to(v, dev) for v in x)
+    return x.to(dev) if torch.is_tensor(x) else x
+
+
+@pytest.mark.parametrize("variant", ["last_kf", "stereo", "last_frame"])
+def test_pose_inertial_optimize_on_the_card_matches_the_cpu(cuda, variant):
+    from orb_slam3_tpu_torch.tracking import vi_pose_opt
+
+    args, kw = _vi_pose_case(variant)
+    cur_c, inl_c, n_c, H_c = vi_pose_opt.pose_inertial_optimize(*args, **kw)
+    cur_g, inl_g, n_g, H_g = vi_pose_opt.pose_inertial_optimize(*_to(args, cuda), **_to(kw, cuda))
+    assert cur_g["R"].device.type == cuda.type
+    for k, atol in (("R", 1e-4), ("t", 1e-4), ("v", 1e-3), ("bg", 1e-5), ("ba", 1e-4)):
+        np.testing.assert_allclose(cur_g[k].cpu().numpy(), cur_c[k].numpy(), atol=atol,
+                                   err_msg=k)
+    assert torch.equal(inl_g.cpu(), inl_c) and int(n_g) == int(n_c)
+    assert not inl_c[:40].any() and int(n_c) > 500
+    Hc = H_c.numpy()
+    np.testing.assert_allclose(H_g.cpu().numpy(), Hc, atol=1e-3 * np.abs(Hc).max())
+
+
+def test_local_inertial_ba_on_the_card_matches_the_cpu(cuda):
+    from orb_slam3_tpu_torch.imu import factors, preintegration as pre, vi_ba
+
+    R_wb, p, v, packets = _body_states(10)
+    kf = [0, 3, 6, 9]
+    wins = [_window(packets[a + 1:b + 1], VI_NOISE) for a, b in zip(kf[:-1], kf[1:])]
+    stack = pre.stack(wins)
+    data, info = factors.preint_edge_data(stack)
+    rng = np.random.default_rng(1)
+    W, L = len(kf), 300
+    Xc0 = np.stack([rng.uniform(-2, 2, L), rng.uniform(-1.5, 1.5, L), rng.uniform(5, 10, L)], -1)
+    X = Xc0 @ R_wb[0].T + p[0]
+    Rcw = np.swapaxes(R_wb[kf], 1, 2)
+    Xc = np.einsum("kij,klj->kli", Rcw, X[None] - p[kf][:, None])
+    uv = Xc[..., :2] / Xc[..., 2:] * np.array(K_VI[:2]) + np.array(K_VI[2:])
+    uv = (uv + 0.5 * rng.standard_normal(uv.shape)).reshape(-1, 2)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))  # noqa: E731
+    dp = rng.normal(0, 0.02, (W, 6))
+    dp[0] = 0.0
+    Rp, tp = lie.se3_rplus(f(R_wb[kf]), f(p[kf]), f(dp))
+    src = torch.arange(W - 1, dtype=torch.int32)
+    fixed = torch.zeros(W, dtype=torch.bool)
+    fixed[0] = True
+    args = (0, f(list(K_VI) + [0.0] * 4), torch.eye(3), torch.zeros(3), Rp, tp,
+            f(v[kf] + rng.normal(0, 0.1, (W, 3))), torch.zeros(W, 3), torch.zeros(W, 3), fixed,
+            f(X + rng.normal(0, 0.05, X.shape)), torch.zeros(L, dtype=torch.bool),
+            torch.arange(W).repeat_interleave(L), torch.arange(L).repeat(W), f(uv),
+            torch.ones(W * L), torch.ones(W * L, dtype=torch.bool), data, info,
+            factors.rw_info6(stack), src, src + 1, torch.ones(W - 1, dtype=torch.bool))
+    out_c = vi_ba.local_inertial_ba(*args, iters=6, bias_prior=(1e2, 1e5))
+    out_g = vi_ba.local_inertial_ba(*_to(args, cuda), iters=6, bias_prior=(1e2, 1e5))
+    assert out_g[0].device.type == cuda.type
+    assert float(out_c[6].cost) < 0.1 * float(out_c[6].cost0)
+    for i, atol in zip(range(6), (1e-4, 1e-4, 1e-3, 1e-5, 1e-4, 1e-3)):
+        np.testing.assert_allclose(out_g[i].cpu().numpy(), out_c[i].numpy(), atol=atol,
+                                   err_msg=str(i))
+
+
+def test_k1_and_k2_at_the_inertial_tracking_site(cuda):
+    """The local-map match (K1) and the motion-only BA (K2) of the fused
+    step at an inertial frame's shapes (N = 8192, M = 1000) from the pose
+    the IMU predicts over a frame's packet, on the card against their
+    plain versions: K1 exact, K2 within R 1e-5 / t 1e-4."""
+    from orb_slam3_tpu_torch import entry
+    from orb_slam3_tpu_torch.frontend import camera as cam
+    from orb_slam3_tpu_torch.frontend import orb
+    from orb_slam3_tpu_torch.imu import preintegration as pre
+    from orb_slam3_tpu_torch.tracking import track
+
+    cfg = orb.OrbConfig(n_features=1000, n_levels=8)
+    img = entry.blob_frame(480, 752, seed=4)
+    feats = orb.extract(torch.from_numpy(img), cfg)
+    K = cam.make_pinhole(450.0, 450.0, 376.0, 240.0, device="cpu")
+    scene = entry.make_scene(feats.xy.numpy(), feats.octave.numpy(), feats.descriptors.numpy(),
+                             feats.valid.numpy(), K.numpy(), cfg.n_levels, 8192)
+    _, _, _, packets = _body_states(2)
+    win = _window(packets[1:2], VI_NOISE)
+    # the previous body state 0.1 s back along a 0.2 m/s drift: the
+    # prediction lands within a few mm of the frame's true pose
+    v = torch.tensor([0.2, 0.0, 0.0])
+    R_pred, t_pred, _ = pre.predict_state(win, torch.eye(3), -0.1 * v, v, torch.zeros(3),
+                                          torch.zeros(3))
+    R_cw, t_cw = lie.se3_inv(lie.normalize_rotation(R_pred @ torch.from_numpy(scene["R0"])),
+                             t_pred)
+    R_cw = R_cw.contiguous()
+    lm = [torch.from_numpy(scene[k]) for k in ("lm_pos", "lm_desc", "lm_valid", "lm_max_dist",
+                                                  "lm_min_dist", "lm_normal")]
+    sf = cfg.scale_factors("cpu")
+
+    def site(dev):
+        m = [a.to(dev) for a in lm]
+        fx = [a.to(dev) for a in (feats.xy, feats.descriptors, feats.octave, feats.valid)]
+        idx, ok, _, _, _ = track.match_local_map(0, K.to(dev), R_cw.to(dev), t_cw.to(dev), *m,
+                                                 *fx, 4.0, sf.to(dev), img_wh=(752.0, 480.0))
+        idx = idx.long()
+        inv = 1.0 / sf.to(dev)[torch.clamp(fx[2][idx], 0, 7).long()] ** 2
+        return (idx, ok), track.pose_optimize(0, K.to(dev), R_cw.to(dev), t_cw.to(dev),
+                                              fx[0][idx].contiguous(), m[0], inv, ok)
+
+    (idx_c, ok_c), pose_c = site("cpu")
+    k1, k2 = mk.launches, pk.launches
+    (idx_g, ok_g), pose_g = site(cuda)
+    torch.cuda.synchronize()
+    assert mk.launches == k1 + 1 and pk.launches == k2 + 1
+    assert torch.equal(ok_g.cpu(), ok_c) and torch.equal(idx_g.cpu()[ok_c], idx_c[ok_c])
+    assert int(ok_c.sum()) > 400
+    np.testing.assert_allclose(pose_g[0].cpu().numpy(), pose_c[0].numpy(), atol=1e-5)
+    np.testing.assert_allclose(pose_g[1].cpu().numpy(), pose_c[1].numpy(), atol=1e-4)

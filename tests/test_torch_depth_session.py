@@ -279,7 +279,8 @@ def test_system_routes_each_sensor(stereo_session):
         system.track_monocular(None, 1.0)
     with pytest.raises(ValueError, match="rgbd"):
         tsys.System(config=stereo_session["cfg"], sensor="rgbd")
-    with pytest.raises(NotImplementedError, match="inertial"):
+    # the inertial sensor is its own config's (test_torch_vi_session.py)
+    with pytest.raises(ValueError, match="stereo-imu"):
         tsys.System(config=stereo_session["cfg"], sensor="stereo-imu")
     system.activate_localization_mode()
     assert system.tracker.mapping_paused

@@ -17,8 +17,10 @@ numpy inputs.
   window 4).
 - A fisheye-stereo session through System(settings_path) against the JAX
   Tracker (async_mapping=False, pipeline_depth=1) on the same features:
-  states, inliers and poses (atol 1e-4). Tier-1 runs 3 frames at 256x192;
-  the slow case runs test_slam_fisheye.py's size (512x384, 10 frames).
+  states, inliers and poses (atol 1e-4), slow (3 frames at 256x192, and
+  test_slam_fisheye.py's size, 512x384, 10 frames: the JAX compile of the
+  tracker's stereo init and fused step is most of it); Tier-1 runs the 3
+  frames on the port alone with test_slam_fisheye.py's gates.
 """
 
 import dataclasses
@@ -293,6 +295,30 @@ def jax_ok_only(monkeypatch):
     jax.clear_caches()
 
 
+def test_fisheye_system_session_tracks_on_the_port(tmp_path):
+    """The port's System(settings_path) alone on the same 3 fisheye frames
+    (Tier-1 twin of the JAX comparison below, which compiles the JAX
+    tracker's stereo init and fused step): every frame OK with >= 50
+    inliers from the second on, and test_slam_fisheye.py's gates."""
+    path = tmp_path / "fisheye.yaml"
+    path.write_text(entry.kb8_stereo_settings(K8_SMALL, (256, 192), BASE, 300, 4))
+    frames, R_gt, t_gt = kb8_frames(3, K8_SMALL, (256, 192))
+    sys_ = tsys.System(str(path), sensor="stereo", device="cpu")
+    sys_.tracker = ttrk.Tracker(dataclasses.replace(sys_.tracker.cfg, kmax=8, lmax=1024,
+                                                    local_window=4), device="cpu")
+    rec = []
+    for i, (l, r) in enumerate(frames):
+        sys_.track_stereo(l, r, 0.05 * i)
+        rec.append((sys_.tracker.state, sys_.tracker.last_inliers))
+    assert all(r[0] == ttrk.OK for r in rec) and min(r[1] for r in rec[1:]) >= 50
+    ts, R_t, t_t, ok = sys_.tracker.poses()
+    assert ok.all()
+    est = teval.camera_centers(R_t[ok], t_t[ok])
+    gt = teval.camera_centers(R_gt[ok], t_gt[ok])
+    assert teval.ate_rmse(ts[ok], est, ts[ok], gt, with_scale=False)[0] < 0.05
+
+
+@pytest.mark.slow
 def test_fisheye_system_session_matches_jax_tracker(tmp_path, jax_ok_only):
     t, j, rec_t, rec_j, R_gt, t_gt = system_vs_jax(tmp_path, 3, K8_SMALL, (256, 192), (300, 4),
                                                    kmax=8, lmax=1024, window=4)

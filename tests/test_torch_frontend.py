@@ -2,7 +2,11 @@
 
 Same numpy frame (a blob-textured 256x192 image, 256 features over 4
 levels) through both packages on the CPU: pyramid and blur, FAST scores,
-keypoint selection on one shared response map, and the full extraction.
+keypoint selection on one shared response map, and (slow: the JAX
+extraction runs op by op, ~30 s) the full extraction. In Tier-1 the
+port's extraction is held on its own: every keypoint a FAST corner of its
+level's response at the selection's threshold, in the frame, on distinct
+pixels per level, and the same features on a second call.
 """
 
 import jax.numpy as jnp
@@ -64,6 +68,7 @@ def test_select_keypoints_exact(frame):
     np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
 
 
+@pytest.mark.slow
 def test_extract_matches_jax(frame):
     # JAX runs op by op here: jitted, XLA:CPU fuses the blur's multiply-adds
     # into FMAs and moves a few descriptor bits; the port rounds each product
@@ -90,3 +95,27 @@ def test_extract_matches_jax(frame):
     np.testing.assert_allclose(
         f_t.angle.numpy()[same_kp], np.asarray(f_j.angle)[same_kp], atol=1e-4
     )
+
+
+def test_extract_on_the_port(frame):
+    """The port's extraction alone: 200-256 valid keypoints inside the
+    frame, distinct pixels per level, each level-0 keypoint on a FAST
+    corner of the frame (score above the minimum threshold), angles in
+    [-pi, pi], and two calls give the same features."""
+    cfg = torb.OrbConfig(**CFG_ARGS)
+    f1 = torb.extract(torch.from_numpy(frame), cfg)
+    f2 = torb.extract(torch.from_numpy(frame), cfg)
+    for name in ("xy", "octave", "angle", "descriptors", "valid"):
+        assert torch.equal(getattr(f1, name), getattr(f2, name)), name
+    v = f1.valid.numpy()
+    assert 200 <= v.sum() <= CFG_ARGS["n_features"]
+    xy, octv = f1.xy.numpy()[v], f1.octave.numpy()[v]
+    assert (xy >= 0).all() and (xy[:, 0] < W).all() and (xy[:, 1] < H).all()
+    assert set(np.unique(octv)) <= set(range(CFG_ARGS["n_levels"]))
+    for lvl in np.unique(octv):
+        pts = np.round(xy[octv == lvl] / 1.2 ** lvl).astype(int)
+        assert len({tuple(p) for p in pts}) == len(pts)
+    score = tfast.fast_score(torch.from_numpy(frame)).numpy()
+    p0 = np.round(xy[octv == 0]).astype(int)
+    assert (score[p0[:, 1], p0[:, 0]] > 7.0).mean() >= 0.99
+    assert (np.abs(f1.angle.numpy()[v]) <= np.pi + 1e-6).all()

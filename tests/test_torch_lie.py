@@ -38,7 +38,8 @@ def _both(fn_j, fn_t, *arrays):
 
 
 @pytest.mark.parametrize("name", ["hat", "so3_exp", "so3_left_jacobian",
-                                  "_left_jacobian_inv"])
+                                  "_left_jacobian_inv", "so3_right_jacobian",
+                                  "so3_right_jacobian_inv"])
 def test_so3_functions_of_vectors(name):
     w = _twists()[:, 3:]
     js, ts = _both(getattr(jlie, name), getattr(tlie, name), w)

@@ -7,8 +7,11 @@
   rectifier, make_kb8, the vocabulary's train / load_orb_text and
   train_vocabulary's camera, the room scene's ray caster) default to CUDA
   and raise where there is none.
-- The place-recognition and loop-closing subpackages (place/, graphopt/)
-  and the global BA import neither jax nor the JAX package.
+- The place-recognition and loop-closing subpackages (place/, graphopt/),
+  the global BA and the inertial modules (imu/, tracking/vi_pose_opt.py,
+  tracking/vi_tracker.py) import neither jax nor the JAX package.
+- Tracker and System accept the three inertial sensors and default to
+  CUDA with them too.
 - Settings files are read without PyYAML or OpenCV.
 - The port's copy of the ORB pattern equals the JAX package's asset, and
   atlas/invariants.py is the port's own module.
@@ -172,7 +175,9 @@ def test_entry_points_import_no_jax():
                 "utils/verbose.py", "api/settings.py", "frontend/rectify.py",
                 "frontend/camera.py", "frontend/stereo.py", "place/vocab.py",
                 "place/recognition.py", "graphopt/sim3_solver.py", "graphopt/essential.py",
-                "graphopt/loop_closer.py", "mapping/global_ba.py"):
+                "graphopt/loop_closer.py", "mapping/global_ba.py", "imu/preintegration.py",
+                "imu/factors.py", "imu/initialization.py", "imu/vi_ba.py",
+                "tracking/vi_pose_opt.py", "tracking/vi_tracker.py", "convert.py"):
         roots = set(_imported_roots(PKG / rel))
         assert not roots & set(FORBIDDEN), (rel, roots & set(FORBIDDEN))
 
@@ -191,3 +196,45 @@ def test_orb_pattern_copy_equals_jax_asset():
     ref = np.load(ROOT / "orb_slam3_tpu" / "frontend" / "assets" / "orb_pattern.npy")
     assert ours.dtype == ref.dtype and ours.shape == ref.shape == (256, 4)
     np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("sensor", ["mono-imu", "stereo-imu", "rgbd-imu"])
+def test_inertial_sensors_are_accepted_and_default_to_cuda(monkeypatch, sensor):
+    from orb_slam3_tpu_torch.api import system as tsystem
+
+    assert {p.name for p in (PKG / "imu").glob("*.py")} >= {
+        "preintegration.py", "factors.py", "initialization.py", "vi_ba.py"}
+    K = np.asarray([40.0, 40.0, 32.0, 24.0, 0, 0, 0, 0], np.float32)
+    Tbc = np.eye(4, dtype=np.float32)
+    Tbc[:3, 3] = (0.1, 0.0, 0.02)
+    cfg = ttracker.TrackerConfig(K=K, img_wh=(64, 48), sensor=sensor, bf=4.0, kmax=4, lmax=32,
+                                 Tbc=Tbc)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttracker.Tracker(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsystem.System(config=cfg, sensor=sensor)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tentry.tracker_config(sensor=sensor, bf=4.0)
+    t = ttracker.Tracker(cfg, device="cpu")
+    assert t.base_sensor == sensor.split("-")[0] and t.imu is not None
+    assert t.imu.Rbc.device.type == "cpu" and float(t.imu.tbc[0]) == pytest.approx(0.1)
+    cpu_cfg = tentry.tracker_config("cpu", img_wh=(64, 48), sensor=sensor, bf=4.0, kmax=4,
+                                    lmax=32)
+    s = tsystem.System(config=cpu_cfg, sensor=sensor)
+    frame = np.zeros((48, 64), np.float32)
+    packet = np.zeros((4, 7))
+    packet[:, 0] = np.arange(1, 5) * 0.005
+    track = {"mono": lambda: s.track_monocular(frame, 0.02, imu=packet),
+             "stereo": lambda: s.track_stereo(frame, frame, 0.02, imu=packet),
+             "rgbd": lambda: s.track_rgbd(frame, frame, 0.02, imu=packet)}[t.base_sensor]
+    assert track() is None and s.tracking_state() == ttracker.NOT_INITIALIZED
+    assert s.tracker.imu._frame_meas is not None
+
+
+def test_imu_measurements_on_a_visual_session_raise():
+    from orb_slam3_tpu_torch.api import system as tsystem
+
+    s = tsystem.System(config=tentry.tracker_config("cpu", img_wh=(64, 48), kmax=4, lmax=32))
+    with pytest.raises(ValueError, match="IMU"):
+        s.track_monocular(np.zeros((48, 64), np.float32), 0.0, imu=np.zeros((2, 7)))

@@ -144,6 +144,9 @@ def test_to_tracker_config_matches_jax(settings_file):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b, np.float32), err_msg=f)
     assert ours.stereo_fisheye == (name == "tumvi")
     assert (ours.dist_coeffs is not None) == (name in ("euroc", "resize"))
+    # the IMU noise densities and the body-camera extrinsics are passed on
+    assert ours.imu_noise == ref.imu_noise
+    np.testing.assert_array_equal(np.asarray(ours.Tbc), np.asarray(ref.Tbc))
 
 
 def test_system_from_settings_files(tmp_path, monkeypatch):
@@ -177,9 +180,12 @@ def test_system_from_settings_files(tmp_path, monkeypatch):
                         lambda img, ts, **kw: seen.append(tuple(img.shape)))
     rs.track_monocular(np.zeros((480, 752), np.float32), 0.0)
     assert seen == [(350, 600)]
-    # the inertial sensors still wait for their slice
-    with pytest.raises(NotImplementedError, match="inertial"):
-        tsys.System(str(paths["euroc"]), sensor="mono-imu", device="cpu")
+    # an inertial sensor's session takes the file's IMU noise and Tbc
+    vi = tsys.System(str(paths["euroc"]), sensor="mono-imu", device="cpu").tracker
+    s_vi = tset.load_settings(str(paths["euroc"]), "mono-imu")
+    assert vi.cfg.sensor == "mono-imu" and vi.imu.noise["noise_gyro"] == s_vi.noise_gyro
+    np.testing.assert_array_equal(vi.imu.Rbc.numpy(), s_vi.Tbc[:3, :3])
+    np.testing.assert_array_equal(vi.imu.tbc.numpy(), s_vi.Tbc[:3, 3])
     # a config, when given, is used as is
     cfg_mono = ttrk.TrackerConfig(K=np.asarray([40.0, 40.0, 32.0, 24.0, 0, 0, 0, 0], np.float32),
                                   img_wh=(64, 48), kmax=4, lmax=32)

@@ -246,10 +246,11 @@ def test_system_raises_for_what_is_not_ported(session):
     assert tsys.System(config=cfg, vocabulary=voc).tracker.loop_closer.voc.n_words == 16
     with pytest.raises(NotImplementedError, match="Atlas"):
         tsys.System(config=cfg, atlas_path="atlas.npz")
-    with pytest.raises(NotImplementedError, match="inertial"):
+    # the inertial sensors are ported (test_torch_vi_session.py): the
+    # session runs its config's sensor
+    with pytest.raises(ValueError, match="mono-imu"):
         tsys.System(config=cfg, sensor="mono-imu")
-    with pytest.raises(NotImplementedError, match="inertial"):
-        ttrk.Tracker(ttrk.TrackerConfig(K=cfg.K, sensor="rgbd-imu"))
+    assert ttrk.Tracker(ttrk.TrackerConfig(K=cfg.K, sensor="rgbd-imu")).imu is not None
     # stereo and RGB-D are ported: a session of one sensor refuses the others
     with pytest.raises(ValueError, match="stereo"):
         tsys.System(config=cfg, sensor="stereo")
@@ -258,8 +259,9 @@ def test_system_raises_for_what_is_not_ported(session):
                  lambda: system.track_rgbd(None, None, 0.0)):
         with pytest.raises(ValueError, match="'mono' session"):
             call()
-    for call in (lambda: system.track_monocular(None, 0.0, imu=np.zeros((1, 7))),
-                 lambda: system.save_atlas("x"),
+    with pytest.raises(ValueError, match="IMU"):
+        system.track_monocular(None, 0.0, imu=np.zeros((1, 7)))
+    for call in (lambda: system.save_atlas("x"),
                  lambda: system.start_viewer()):
         with pytest.raises(NotImplementedError):
             call()
