@@ -112,14 +112,17 @@ Phases; any failure exits non-zero without the final `ok` line:
      450 x 0.1; each vocabulary trained in the run, branching 8, depth 3,
      on held-out views) through entry.slam(vocabulary=...)
      (System.track_rgbd), each session with the launch counters zeroed
-     just before it: reloc-full (tests/test_loop_reloc.py's blackout:
+     just before it; loop-full on the free-running schedule (the
+     background mapper thread, pipeline depth 6), the other two on the
+     synchronous one: reloc-full (tests/test_loop_reloc.py's blackout:
      PlaneScene seed 5, 14 frames, 3 blank, a resume at frame 6's view:
      lost after the blank frames, OK after the resume, camera centre within
      0.15, one map), loop-full (tests/test_loop_closing.py's closed loop:
      the numpy room scene, seed 3, 110 frames of 1.12 turns, kf_max_frames
      2: phase-1 keyframe ATE < 0.10, >= 1 loop, post-loop ATE < max(1.05 x
      pre, 0.05) and < 0.12, the last 10 frames tracked, the Atlas
-     invariants) and merge-full (tests/test_loop_reloc.py's multimap merge:
+     invariants; and tests/test_async_accuracy.py::test_async_loop_closing's
+     >= 1 loop or merge and keyframe ATE < 0.20) and merge-full (tests/test_loop_reloc.py's multimap merge:
      seed 6, 24 frames, 7 blank, a resume over frames 40 -> 6: two maps
      after the blackout, >= 1 merge, one map id at the end); K1 launched at
      the merge site (merge_duplicates_at_keyframe) and equal to its plain
@@ -153,12 +156,33 @@ Phases; any failure exits non-zero without the final `ok` line:
      init and each refinement's ms, the pose-inertial call's CUDA kernels,
      one frame's preintegration alone, and one inertial keyframe's device
      busy share.
-Phases 6-12 print one JSON line with each kernel's bound and launches by
+ 13. the free-running default schedule at full width (TrackerConfig's
+     defaults: the background mapper on its own thread and CUDA stream,
+     pipeline depth 6) through entry.slam, each session with the launch
+     counters zeroed just before it: async-mono-full (phase 8's 40 frames,
+     run twice), async-rgbd-full (phase 9's RGB-D session), async-reloc-full
+     (phase 11's blackout) and async-vi-full
+     (tests/test_async_accuracy.py::test_async_vi_init_and_metric_scale's
+     60-frame mono-inertial session at phase 12's config), with the gates
+     of tests/test_async_accuracy.py (mono: OK, >= 70% tracked,
+     scale-fitted ATE < 0.35, both runs; RGB-D: OK, >= 80% tracked,
+     unscaled ATE < 0.10; blackout: not OK after the blank frames, OK after
+     the resume; VI: IMU initialized, >= 60% tracked, |s - 1| < 0.2) and
+     the Atlas invariants; every fuse call on the mapper thread's stream,
+     K1 there equal to its plain version on the last fuse call's inputs,
+     K2 within R 1e-5 / t 1e-4 of plain on a pipelined frame's inputs,
+     every mapper thread stopped by System.shutdown; then per cell the
+     frame ms with the mapper busy and idle, keyframe-request frames, the
+     mapper's per-package stages, its packages, BAs, skipped BAs and
+     longest queue, the frames in flight, and the device busy share over 5
+     frames tracked while a package is mapped.
+Phases 6-13 print one JSON line with each kernel's bound and launches by
 path and call site; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import statistics
 import subprocess
@@ -173,6 +197,11 @@ HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
 FULL_W, FULL_H, FULL_L = 752, 480, 2048
+
+# the synchronous schedule phases 7-12 measure (mapping on the frame that
+# inserts the keyframe, each frame's outcome consumed on that frame); the
+# port's default is the background mapper at pipeline depth 6 (phase 13)
+SYNC = dict(async_mapping=False, pipeline_depth=1)
 
 
 class SmokeFailure(RuntimeError):
@@ -927,7 +956,7 @@ def phase_bootstrap(dev, gpu):
     frames, R_gt, t_gt, planes = entry.plane_sequence(BOOT_FRAMES)
     print(f"[boot] rendered {BOOT_FRAMES} PlaneScene frames in "
           f"{time.perf_counter() - t0:.1f} s")
-    cfg = entry.tracker_config(dev)
+    cfg = entry.tracker_config(dev, **SYNC)
     print(f"[boot] config: kmax {cfg.kmax}, lmax {cfg.lmax}, window {cfg.local_window}, "
           f"{cfg.orb.n_features} features x {cfg.orb.n_levels} levels")
 
@@ -987,7 +1016,7 @@ def phase_bootstrap(dev, gpu):
     # the same features through the CPU plain path: same init outcome and
     # the first CPU_TRACK tracked poses within 1e-3 (8 until phase 12 came:
     # each CPU frame costs ~2 s of plain K2 and the script keeps its budget)
-    cfg_cpu = entry.tracker_config("cpu")
+    cfg_cpu = entry.tracker_config("cpu", **SYNC)
     t0 = time.perf_counter()
     out_cpu = entry.bootstrap_features([_cpu_feats(f) for f in out["feats"]], cfg_cpu,
                                        n_track=CPU_TRACK)
@@ -1245,7 +1274,7 @@ def phase_slam(dev, gpu):
     t0 = time.perf_counter()
     frames, R_gt, t_gt, _ = entry.plane_sequence(SLAM_FRAMES)
     print(f"[slam] rendered {SLAM_FRAMES} PlaneScene frames in {time.perf_counter() - t0:.1f} s")
-    cfg = entry.tracker_config(dev)
+    cfg = entry.tracker_config(dev, **SYNC)
 
     # the K1 launches inside each fuse call, the inputs of the last fuse
     # call's K1 and of the last keyframe's mapping stack
@@ -1479,7 +1508,8 @@ def run_depth_session(dev, name, sensor, seed, n, baseline, localize_from, th_de
     t0 = time.perf_counter()
     frames, R_gt, t_gt = depth_frames(sensor, seed, n, baseline)
     render_s = time.perf_counter() - t0
-    cfg = entry.tracker_config(dev, sensor=sensor, bf=450.0 * baseline, th_depth=th_depth)
+    cfg = entry.tracker_config(dev, sensor=sensor, bf=450.0 * baseline, th_depth=th_depth,
+                               **SYNC)
     F, L = cfg.orb.n_features, cfg.lmax
     rec = {"frames": [], "fuse_new": [], "pre": None, "k2_stereo": None, "k1_vo": None,
            "k2_loc": None, "paused_at_kf": None,
@@ -1818,6 +1848,7 @@ def run_settings_session(dev, name, n, seed, tmpdir):
     import torch
 
     from orb_slam3_tpu_torch import entry
+    from orb_slam3_tpu_torch.api import settings
     from orb_slam3_tpu_torch.frontend import camera as cam
     from orb_slam3_tpu_torch.frontend import match_kernel as mk
     from orb_slam3_tpu_torch.frontend import stereo
@@ -1838,8 +1869,13 @@ def run_settings_session(dev, name, n, seed, tmpdir):
     o = dict(k1=mk.search_by_projection_kernel, k2=pk.pose_ba, tfv=track.track_frame_visual,
              mlm=track.match_local_map, msf=stereo.match_stereo_fisheye,
              two=track.pose_optimize_two_cam, pos=track.pose_optimize_stereo,
-             fuse=fuse.fuse_into_keyframe, pre=pipeline.run_pre_stage, stage=GLOBAL_TIMER.stage)
+             fuse=fuse.fuse_into_keyframe, pre=pipeline.run_pre_stage, stage=GLOBAL_TIMER.stage,
+             ttc=settings.to_tracker_config)
     site = [None]
+
+    def ttc_sync(s, device=None, **overrides):
+        # the settings file's tracker config, on the synchronous schedule
+        return o["ttc"](s, device=device, **SYNC, **overrides)
 
     def k1_rec(*a, **kw):
         if site[0] == "right":
@@ -1914,6 +1950,7 @@ def run_settings_session(dev, name, n, seed, tmpdir):
     stereo.match_stereo_fisheye, track.pose_optimize_two_cam = msf_rec, two_rec
     track.pose_optimize_stereo = pos_rec
     fuse.fuse_into_keyframe, pipeline.run_pre_stage = fuse_rec, pre_rec
+    settings.to_tracker_config = ttc_sync
     GLOBAL_TIMER.stage = lambda stage_name: GLOBAL_TIMER.stage_sync(stage_name, dev)
     try:
         mk.launches = pk.launches = pk.stereo_launches = 0
@@ -1930,8 +1967,11 @@ def run_settings_session(dev, name, n, seed, tmpdir):
         stereo.match_stereo_fisheye, track.pose_optimize_two_cam = o["msf"], o["two"]
         track.pose_optimize_stereo = o["pos"]
         fuse.fuse_into_keyframe, pipeline.run_pre_stage = o["fuse"], o["pre"]
+        settings.to_tracker_config = o["ttc"]
         GLOBAL_TIMER.stage = o["stage"]
     cfg = system.tracker.cfg
+    check(not cfg.async_mapping and cfg.pipeline_depth == 1,
+          f"{name}: the settings session is not on the synchronous schedule")
     print(f"[settings {name}] {n} frames rendered in {render_s:.1f} s; main path "
           f"(entry.slam(settings_path) -> System.track_stereo, kind {cfg.kind}, "
           f"stereo_fisheye {cfg.stereo_fisheye}, bf {cfg.bf:.4g}, th_depth {cfg.th_depth:g}, "
@@ -2075,7 +2115,7 @@ def rectified_checks(run, dev, gpu):
     rect_ms = time_ms(lambda: rg(raw_l, raw_r), runs=20)
     # the rad-tan keypoint path: a pinhole camera with the raw distortion
     cfg = dict(K=np.asarray(list(entry.EUROC_K) + [0.0] * 4, np.float32), img_wh=entry.FULL_WH,
-               dist_coeffs=np.asarray(entry.EUROC_D, np.float32), kmax=8, lmax=1024)
+               dist_coeffs=np.asarray(entry.EUROC_D, np.float32), kmax=8, lmax=1024, **SYNC)
     tg = tracker.Tracker(tracker.TrackerConfig(**cfg), device=dev)
     tc = tracker.Tracker(tracker.TrackerConfig(**cfg), device="cpu")
     img = torch.from_numpy(raw_l)
@@ -2207,6 +2247,8 @@ def loop_sessions():
     frames, 7 blank ones, a resume over frames 40 -> 6 in steps of 2 until
     the maps merge), and tests/test_loop_closing.py's closed loop (the numpy
     room scene, seed 3, exposure jitter 0.04, 110 frames of 1.12 turns).
+    The closed loop runs on the free-running schedule (the background
+    mapper's thread), the other two on the synchronous one.
     Every frame is an (image, depth map) pair at 752x480, ray-cast on the
     card (entry.QuadScene; the plane scenes as entry.plane_quads, within
     0.005 grey levels of entry.render_with_depth); the vocabulary views are
@@ -2217,12 +2259,7 @@ def loop_sessions():
 
     K, wh = entry.FULL_K, entry.FULL_WH
     blank = (np.zeros((wh[1], wh[0]), np.float32), np.ones((wh[1], wh[0]), np.float32))
-    out = []
-    scene = entry.QuadScene(K, wh, entry.plane_quads(entry.plane_scene(5)))
-    R, t = entry.orbit_trajectory(RELOC_FRAMES)
-    frames = [scene.render_with_depth(R[i], t[i]) for i in list(range(RELOC_FRAMES)) + [6]]
-    out.append(("reloc-full", frames[:RELOC_FRAMES] + [blank] * 3 + frames[-1:], R, t,
-                dict(kf_max_frames=5), [f[0] for f in frames[:3]], None))
+    out = [reloc_session(dict(kf_max_frames=5, **SYNC))]
     scene = entry.QuadScene(K, wh, entry.plane_quads(entry.plane_scene(6)))
     R, t = entry.orbit_trajectory(60, advance=0.05)
     frames = [scene.render_with_depth(R[i], t[i])
@@ -2230,15 +2267,34 @@ def loop_sessions():
     R3, t3 = entry.orbit_trajectory(3)
     views = [scene.render(R3[i], t3[i]) for i in range(3)]
     out.append(("merge-full", frames[:MERGE_FRAMES] + [blank] * 7 + frames[MERGE_FRAMES:],
-                R, t, dict(kf_max_frames=2), views,
+                R, t, dict(kf_max_frames=2, **SYNC), views,
                 lambda sys_: sys_.tracker.loop_closer.n_merges > 0))
     scene = entry.room_scene(np.array(LOOP_K), img_wh=wh, seed=3, exposure_jitter=0.04)
     Rv, tv = entry.loop_trajectory(4, radius=1.0, start_angle=0.4)
     views = [scene.render(Rv[i], tv[i]) for i in range(4)]
     R, t = entry.loop_trajectory(LOOP_FRAMES, radius=LOOP_RADIUS, loops=LOOP_TURNS)
     frames = [scene.render_with_depth(R[i], t[i]) for i in range(LOOP_FRAMES)]
+    # the closed loop on the free-running schedule (the TrackerConfig
+    # defaults: the background mapper thread, pipeline depth 6)
     out.append(("loop-full", frames, R, t, dict(kf_max_frames=2), views, None))
     return out
+
+
+def reloc_session(fields):
+    """reloc-full's (name, frames, R_gt, t_gt, cfg fields, vocabulary views,
+    until): tests/test_loop_reloc.py's blackout, PlaneScene seed 5, 14
+    frames, 3 blank frames, a resume at frame 6's view."""
+    import numpy as np
+
+    from orb_slam3_tpu_torch import entry
+
+    K, wh = entry.FULL_K, entry.FULL_WH
+    blank = (np.zeros((wh[1], wh[0]), np.float32), np.ones((wh[1], wh[0]), np.float32))
+    scene = entry.QuadScene(K, wh, entry.plane_quads(entry.plane_scene(5)))
+    R, t = entry.orbit_trajectory(RELOC_FRAMES)
+    frames = [scene.render_with_depth(R[i], t[i]) for i in list(range(RELOC_FRAMES)) + [6]]
+    return ("reloc-full", frames[:RELOC_FRAMES] + [blank] * 3 + frames[-1:], R, t, fields,
+            [f[0] for f in frames[:3]], None)
 
 
 def kf_ate(s, R_gt, t_gt, dt=0.05):
@@ -2263,8 +2319,11 @@ def run_loop_session(dev, name, frames, R_gt, t_gt, fields, views, until):
     time and launches; K1's launches inside merge_duplicates_at_keyframe
     (the merge site) and the last call's inputs; K2's launches inside the
     relocalization and that call's inputs; each relocalization attempt's
-    time and outcome; the state after every frame that the gates read."""
+    time and outcome; the state after every frame that the gates read. The
+    launches of a call site count the launching thread's own (K1's fuse and
+    merge sites run on the mapper thread in an asynchronous session)."""
     import contextlib
+    import threading
 
     import torch
 
@@ -2285,44 +2344,47 @@ def run_loop_session(dev, name, frames, R_gt, t_gt, fields, views, until):
     o = dict(k1=mk.search_by_projection_kernel, k2=pk.pose_ba, fuse=fuse.fuse_into_keyframe,
              merge=fuse.merge_duplicates_at_keyframe, reloc=tracker.Tracker._try_relocalize,
              stage=GLOBAL_TIMER.stage)
-    site = [None]
+    site = threading.local()
+
+    def own(mod):
+        return mod.launches_by_thread.get(threading.current_thread().name, 0)
 
     def k1_rec(*a, **kw):
-        if site[0] == "merge":
+        if getattr(site, "name", None) == "merge":
             rec["k1_merge"] = (a, kw)
         return o["k1"](*a, **kw)
 
     def k2_rec(*a, **kw):
-        if site[0] == "reloc":
+        if getattr(site, "name", None) == "reloc":
             rec["k2_reloc"] = (a, kw)
         return o["k2"](*a, **kw)
 
     def fuse_rec(*a, **kw):
-        n0 = mk.launches
+        n0 = own(mk)
         try:
             return o["fuse"](*a, **kw)
         finally:
-            rec["sites"]["K1 fuse"] += mk.launches - n0
+            rec["sites"]["K1 fuse"] += own(mk) - n0
 
     def merge_rec(kind, K8, s, row, sf, **kw):
         rec["merge_call"] = (kind, K8, s, row, sf, kw)
-        site[0], n0 = "merge", mk.launches
+        site.name, n0 = "merge", own(mk)
         try:
             return o["merge"](kind, K8, s, row, sf, **kw)
         finally:
-            rec["sites"]["K1 merge"] += mk.launches - n0
-            site[0] = None
+            rec["sites"]["K1 merge"] += own(mk) - n0
+            site.name = None
 
     def reloc_rec(self, feats):
-        site[0], n0 = "reloc", pk.launches
-        torch.cuda.synchronize()
+        site.name, n0 = "reloc", own(pk)
+        torch.cuda.current_stream().synchronize()
         t1 = time.perf_counter()
         try:
             ok = o["reloc"](self, feats)
         finally:
-            torch.cuda.synchronize()
-            rec["sites"]["K2 reloc"] += pk.launches - n0
-            site[0] = None
+            torch.cuda.current_stream().synchronize()
+            rec["sites"]["K2 reloc"] += own(pk) - n0
+            site.name = None
         rec["reloc"].append(dict(ms=(time.perf_counter() - t1) * 1e3, ok=ok))
         return ok
 
@@ -2333,23 +2395,31 @@ def run_loop_session(dev, name, frames, R_gt, t_gt, fields, views, until):
         rec["states"].append(tr.state)
         rec["n_maps"].append(int(tr.map.n_maps))
         if name == "loop-full" and len(rec["states"]) == n1:
+            # the map of the loop's first part, measured at a barrier on
+            # the asynchronous schedule (every queued keyframe mapped)
+            tr.sync_mapping()
             rec["ate_pre"] = kf_ate(tr.map, R_gt, t_gt)
             rec["state_pre"] = tr.state
         return until is not None and until(sys_)
 
+    def n_keyframes():
+        return (len(GLOBAL_TIMER.samples["track.kf_insert_sync"])
+                + len(GLOBAL_TIMER.samples["track.kf_request"]))
+
     def frame_timer(_name):
+        # the tracker's own stream: an asynchronous session's frame does
+        # not wait for the mapper's
         @contextlib.contextmanager
         def part():
-            n_kf = len(GLOBAL_TIMER.samples["track.kf_insert_sync"])
-            k = (mk.launches, pk.launches, rec["sites"]["K1 merge"], rec["sites"]["K2 reloc"])
-            torch.cuda.synchronize()
+            n_kf = n_keyframes()
+            k = (own(mk), own(pk), rec["sites"]["K1 merge"], rec["sites"]["K2 reloc"])
+            torch.cuda.current_stream().synchronize()
             t1 = time.perf_counter()
             yield
-            torch.cuda.synchronize()
+            torch.cuda.current_stream().synchronize()
             rec["frames"].append(dict(
-                ms=(time.perf_counter() - t1) * 1e3,
-                kf=len(GLOBAL_TIMER.samples["track.kf_insert_sync"]) > n_kf,
-                k1=mk.launches - k[0], k2=pk.launches - k[1],
+                ms=(time.perf_counter() - t1) * 1e3, kf=n_keyframes() > n_kf,
+                k1=own(mk) - k[0], k2=own(pk) - k[1],
                 k1_merge=rec["sites"]["K1 merge"] - k[2], k2_reloc=rec["sites"]["K2 reloc"] - k[3]))
         return part()
 
@@ -2360,23 +2430,33 @@ def run_loop_session(dev, name, frames, R_gt, t_gt, fields, views, until):
     GLOBAL_TIMER.stage = lambda stage_name: GLOBAL_TIMER.stage_sync(stage_name, dev)
     try:
         mk.launches = pk.launches = 0
+        mk.launches_by_thread.clear()
+        pk.launches_by_thread.clear()
         t0 = time.perf_counter()
         system = entry.slam(frames, cfg, vocabulary=voc, timer=frame_timer, until=after_frame)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"K1": mk.launches, "K2": pk.launches, **rec["sites"]}
+        launches = {"K1": mk.launches, "K2": pk.launches, **rec["sites"],
+                    "K1 mapper thread": mk.launches_by_thread.get("mapper", 0)}
     finally:
         mk.search_by_projection_kernel, pk.pose_ba = o["k1"], o["k2"]
         fuse.fuse_into_keyframe, fuse.merge_duplicates_at_keyframe = o["fuse"], o["merge"]
         tracker.Tracker._try_relocalize = o["reloc"]
         GLOBAL_TIMER.stage = o["stage"]
     tr = system.tracker
+    m = tr.async_mapper
+    gba = tr.gba if tr.gba is not None else (m.gba if m is not None else None)
     gba_s = None
-    if tr.gba is not None:
+    if gba is not None:
         t1 = time.perf_counter()
-        tr.gba.join(timeout=600)  # the background campaign of the session's loop
+        gba.join(timeout=600)  # the background campaign of the session's loop
         gba_s = time.perf_counter() - t1
-        check(not tr.gba.failed, f"{name}: the background global BA failed: {tr.gba.error}")
+        check(not gba.failed, f"{name}: the background global BA failed: {gba.error}")
+    schedule = ("the free-running mapper thread, pipeline depth "
+                f"{tr.cfg.pipeline_depth}" if tr.cfg.async_mapping else "synchronous")
+    mapper = (f"; mapper: {m.n_processed} packages, {m.n_ba_runs} BAs, {m.n_ba_skips} skipped, "
+              f"longest queue {m.max_queue_seen}" if m is not None else "")
+    print(f"[loop {name}] schedule: {schedule}{mapper}")
     print(f"[loop {name}] vocabulary trained in {voc_s:.1f} s ({voc.n_words} words); main path "
           f"(entry.slam(vocabulary) -> System.track_rgbd, {len(rec['frames'])} frames): "
           f"{wall:.2f} s; launches {launches}; loops {tr.loop_closer.n_loops}, merges "
@@ -2424,8 +2504,14 @@ def loop_gates(name, run):
         ate_pre, ate_post = rec["ate_pre"], kf_ate(s, run["R_gt"], run["t_gt"])
         ok = tr.poses()[3]
         summary.update(ate_pre=ate_pre, ate_post=ate_post, last10_tracked=bool(ok[-10:].all()),
-                       violations=invariants.check_all(s))
-        conds = [(rec.get("state_pre") == tracker.OK, "not OK after phase 1"),
+                       violations=invariants.check_all(s), async_mapping=tr.cfg.async_mapping)
+        # tests/test_loop_closing.py's gates, and on the free-running
+        # schedule tests/test_async_accuracy.py::test_async_loop_closing's
+        conds = [(tr.cfg.async_mapping, "loop-full is not on the free-running schedule"),
+                 (tr.loop_closer.n_loops + tr.loop_closer.n_merges >= 1,
+                  "no loop or merge closed on the free-running schedule"),
+                 (ate_post < 0.20, f"async post-loop keyframe ATE {ate_post:.4f} (gate 0.20)"),
+                 (rec.get("state_pre") == tracker.OK, "not OK after phase 1"),
                  (ate_pre < 0.10, f"phase-1 keyframe ATE {ate_pre:.4f}"),
                  (tr.loop_closer.n_loops >= 1, "no loop closed"),
                  (ate_post < max(1.05 * ate_pre, 0.05),
@@ -2500,7 +2586,8 @@ def phase_loop(dev, gpu):
         kf = [x["ms"] for x in fr[1:] if x["kf"]]
         timing = dict(
             frame_ms=med(plain), keyframe_frame_ms=med(kf), keyframe_frames=len(kf),
-            on_keyframe_ms=med(s.get("loop.on_keyframe", [])),
+            # (the mapper thread brackets the loop closer as map.loop_detect)
+            on_keyframe_ms=med(s.get("loop.on_keyframe", []) or s.get("map.loop_detect", [])),
             on_keyframe_query_ms=med(s.get("loop.query", [])),
             on_keyframe_cascade_ms=med(s.get("loop.cascade", [])),
             correction_ms={k.split(".")[-1]: s[k] for k in (
@@ -2560,7 +2647,7 @@ def phase_loop(dev, gpu):
               f"device {dev_ms:.5f} ms ({dev_by}), plain {rows[kname]['plain_ms']:.3f} ms, bound "
               f"{b_ms:.6f} ms ({b_by})")
     launches = {k: sum(r["launches"].get(k, 0) for r in runs.values())
-                for k in ("K1", "K2", "K1 merge", "K1 fuse", "K2 reloc")}
+                for k in ("K1", "K2", "K1 merge", "K1 fuse", "K2 reloc", "K1 mapper thread")}
     out.update(failed=failed, launches=launches, call_sites=rows, merge_pairs=n_pairs,
                err={"K1": err_k1, "K2": err_k2})
     return out
@@ -2641,7 +2728,7 @@ def run_vi_session(dev, name, sensor, seed, n):
     base = sensor.split("-")[0]
     cfg = entry.tracker_config(dev, img_wh=VI_WH, K=VI_K, sensor=sensor,
                                orb=orb.OrbConfig(n_features=1000, n_levels=8), kmax=64, lmax=8192,
-                               local_window=6, kf_max_frames=3,
+                               local_window=6, kf_max_frames=3, **SYNC,
                                **({} if base == "mono" else dict(bf=VI_K[0] * VI_BASELINE)))
     rec = {"frames": [], "site": None, "k1_fuse": None, "vpo": None, "vba": None,
            "events": [], "kf_profile": None, "states": [],
@@ -3015,9 +3102,357 @@ def phase_vi(dev, gpu):
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+# the free-running default schedule (TrackerConfig: the background mapper on
+# its own thread and CUDA stream, pipeline depth 6): phase 8's monocular
+# session twice, phase 9's RGB-D session, phase 11's blackout, and
+# tests/test_async_accuracy.py::test_async_vi_init_and_metric_scale's
+# 60-frame mono-inertial session at phase 12's config
+ASYNC_VI_FRAMES = 60
+MAPPER_STAGES = ("map.pre", "map.local_ba", "map.culling", "map.loop_detect", "map.imu_stage")
+
+
+def run_async_session(dev, name, frames, cfg, voc=None, imu=None, timestamps=None,
+                      settle_at=(), profile=False):
+    """One phase-13 session through entry.slam on the free-running schedule,
+    the launch counters zeroed just before it. Records per frame its time
+    (the tracker's stream synchronised around it, not the mapper's),
+    whether the mapper was busy at its start or end, whether it requested a
+    keyframe, the frames in flight after it and the tracking thread's
+    launches; each fuse call's thread and stream and the last one's K1
+    inputs; the K2 inputs of the last pipelined frame's fused step and the
+    number of chained steps. Settles the pipeline after the frames in
+    `settle_at` and records the state there. With `profile`, the device is
+    traced over 5 frames from the first frame (after frame 10) that starts
+    with the mapper busy."""
+    import contextlib
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from orb_slam3_tpu_torch import entry
+    from orb_slam3_tpu_torch.frontend import match_kernel as mk
+    from orb_slam3_tpu_torch.mapping import fuse
+    from orb_slam3_tpu_torch.tracking import pose_kernel as pk
+    from orb_slam3_tpu_torch.tracking import tracker as trk
+    from orb_slam3_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    rec = {"frames": [], "fuse": [], "k1_fuse": None, "k2_step": None, "chained": 0,
+           "settled": {}, "tracker": None, "window": None, "fuse_k1": 0}
+    o = dict(k1=mk.search_by_projection_kernel, k2=pk.pose_ba, fuse=fuse.fuse_into_keyframe,
+             tf=trk.track_frame)
+    local = threading.local()
+
+    def k1_rec(*a, **kw):
+        if getattr(local, "fuse", False):
+            rec["k1_fuse"] = (a, kw)
+        return o["k1"](*a, **kw)
+
+    def k2_rec(*a, **kw):
+        if getattr(local, "step", False):
+            rec["k2_step"] = (a, kw)
+        return o["k2"](*a, **kw)
+
+    def fuse_rec(*a, **kw):
+        me = threading.current_thread().name
+        rec["fuse"].append((me, torch.cuda.current_stream().cuda_stream))
+        local.fuse, n0 = True, mk.launches_by_thread.get(me, 0)
+        try:
+            return o["fuse"](*a, **kw)
+        finally:
+            local.fuse = False
+            rec["fuse_k1"] += mk.launches_by_thread.get(me, 0) - n0
+
+    def tf_rec(*a, **kw):
+        # the fused visual step of a pipelined frame (depth > 1)
+        tr = rec["tracker"]
+        local.step = tr is not None and tr._depth() > 1
+        rec["chained"] += kw.get("chain") is not None
+        try:
+            return o["tf"](*a, **kw)
+        finally:
+            local.step = False
+
+    def mapper_busy():
+        tr = rec["tracker"]
+        return tr is not None and tr.async_mapper is not None and not tr.async_mapper.idle()
+
+    def tracking_launches():
+        name_ = threading.current_thread().name
+        return mk.launches_by_thread.get(name_, 0), pk.launches_by_thread.get(name_, 0)
+
+    def frame_timer(_name):
+        @contextlib.contextmanager
+        def part():
+            i = len(rec["frames"])
+            busy0 = mapper_busy()
+            w = rec["window"]
+            if profile and w is None and i >= 10 and busy0:
+                torch.cuda.synchronize()
+                prof = torch_profile(activities=[ProfilerActivity.CUDA])
+                prof.start()
+                w = rec["window"] = dict(prof=prof, t0=time.perf_counter(), frames=0, busy=0)
+            n_kf = len(GLOBAL_TIMER.samples["track.kf_request"])
+            k = tracking_launches()
+            torch.cuda.current_stream().synchronize()
+            t1 = time.perf_counter()
+            yield
+            torch.cuda.current_stream().synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            busy1 = mapper_busy()
+            tr = rec["tracker"]
+            k2 = tracking_launches()
+            rec["frames"].append(dict(
+                ms=ms, busy=busy0 or busy1, kf=len(GLOBAL_TIMER.samples["track.kf_request"]) > n_kf,
+                in_flight=len(tr._pipeline) if tr is not None else 0,
+                k1=k2[0] - k[0], k2=k2[1] - k[1]))
+            if w is not None and "prof" in w:
+                w["frames"] += 1
+                w["busy"] += busy0 or busy1
+                if w["frames"] == 5:
+                    torch.cuda.synchronize()
+                    w["wall_ms"] = (time.perf_counter() - w["t0"]) * 1e3
+                    w["prof"].stop()
+                    w["busy_ms"], w["kernels"], _ = device_busy(w.pop("prof"))
+        return part()
+
+    def after_frame(sys_):
+        rec["tracker"] = sys_.tracker
+        i = len(rec["frames"]) - 1
+        if i in settle_at:
+            sys_.tracker.settle()
+            rec["settled"][i] = sys_.tracker.state
+        return False
+
+    GLOBAL_TIMER.reset()
+    mk.search_by_projection_kernel, pk.pose_ba = k1_rec, k2_rec
+    fuse.fuse_into_keyframe, trk.track_frame = fuse_rec, tf_rec
+    try:
+        mk.launches = pk.launches = pk.stereo_launches = 0
+        mk.launches_by_thread.clear()
+        pk.launches_by_thread.clear()
+        t0 = time.perf_counter()
+        system = entry.slam(frames, cfg, vocabulary=voc, imu=imu, timestamps=timestamps,
+                            timer=frame_timer, until=after_frame)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K1": mk.launches, "K2": pk.launches, "K1 fuse": rec["fuse_k1"],
+                    "K1 mapper thread": mk.launches_by_thread.get("mapper", 0),
+                    "K2 mapper thread": pk.launches_by_thread.get("mapper", 0)}
+    finally:
+        mk.search_by_projection_kernel, pk.pose_ba = o["k1"], o["k2"]
+        fuse.fuse_into_keyframe, trk.track_frame = o["fuse"], o["tf"]
+    tr = system.tracker
+    m = tr.async_mapper
+    check(m is not None and not m.inline and m._stream is not None,
+          f"{name}: the session did not map on the mapper thread's own stream")
+    stream = m._stream.cuda_stream
+    off = [(t, st) for t, st in rec["fuse"] if t != "mapper" or st != stream]
+    check(rec["fuse"] and not off,
+          f"{name}: {len(off)} of {len(rec['fuse'])} fuse calls off the mapper's stream")
+    print(f"[async {name}] main path (entry.slam, {len(frames)} frames, free-running mapper, "
+          f"pipeline depth {tr.cfg.pipeline_depth}): {wall:.2f} s; launches {launches}; "
+          f"{len(rec['fuse'])} fuse calls, all on the mapper thread's stream")
+    return dict(system=system, rec=rec, launches=launches, wall_s=wall, mapper=m,
+                samples={k: list(v) for k, v in GLOBAL_TIMER.samples.items()})
+
+
+def async_summary(name, run, gpu):
+    """Print and return the session's timings: frame ms with the mapper busy
+    and idle, keyframe-request frames, the mapper's per-package stages, its
+    counters, the frames in flight, the busy share of a profiled window."""
+    import statistics
+
+    med = lambda v: round(statistics.median(v), 3) if v else None  # noqa: E731
+    fr, m, s = run["rec"]["frames"], run["mapper"], run["samples"]
+    tracked = fr[1:]
+    busy = [f["ms"] for f in tracked if f["busy"] and not f["kf"]]
+    idle = [f["ms"] for f in tracked if not f["busy"] and not f["kf"]]
+    # the first package blocks until it is mapped, as in the JAX tracker
+    kf_frames = [i for i, f in enumerate(fr) if f["kf"]]
+    kf = [fr[i]["ms"] for i in kf_frames[1:]]
+    in_flight = [f["in_flight"] for f in fr]
+    out = dict(frame_ms_mapper_busy=med(busy), frames_mapper_busy=len(busy),
+               frame_ms_mapper_idle=med(idle), frames_mapper_idle=len(idle),
+               keyframe_request_ms=med(kf), keyframe_requests=len(kf_frames),
+               first_keyframe_request_ms=fr[kf_frames[0]]["ms"] if kf_frames else None,
+               mapper_stage_ms={k: med(s.get(k, [])) for k in MAPPER_STAGES},
+               mapper_stage_n={k: len(s.get(k, [])) for k in MAPPER_STAGES},
+               n_processed=m.n_processed, n_ba_runs=m.n_ba_runs, n_ba_skips=m.n_ba_skips,
+               longest_queue=m.max_queue_seen, in_flight_max=max(in_flight),
+               in_flight_mean=sum(in_flight) / len(in_flight),
+               chained_steps=run["rec"]["chained"], wall_s=run["wall_s"],
+               launches=run["launches"])
+    w = run["rec"]["window"]
+    if w is not None and "wall_ms" in w:
+        share = None if w["busy_ms"] is None else w["busy_ms"] / w["wall_ms"]
+        out.update(busy_window_ms=w["wall_ms"], busy_window_frames_with_mapper_busy=w["busy"],
+                   busy_window_kernels=w["kernels"], busy_window_device_share=share)
+    print(f"[async timing] {gpu}: {name}: frame without a keyframe request, mapper busy: median "
+          f"{out['frame_ms_mapper_busy']} ms over {len(busy)}; mapper idle: median "
+          f"{out['frame_ms_mapper_idle']} ms over {len(idle)}; keyframe-request frame: median "
+          f"{out['keyframe_request_ms']} ms over {len(kf)} (the first, which blocks: "
+          f"{out['first_keyframe_request_ms']} ms)")
+    print(f"[async timing] {gpu}: {name}: mapper per package (stage timer, its stream "
+          f"synchronised), median ms {out['mapper_stage_ms']} (n {out['mapper_stage_n']}); "
+          f"packages {m.n_processed}, BAs {m.n_ba_runs}, skipped {m.n_ba_skips}, longest queue "
+          f"{m.max_queue_seen}; frames in flight after a frame: max {out['in_flight_max']}, mean "
+          f"{out['in_flight_mean']:.2f} (state-machine lag), chained steps "
+          f"{out['chained_steps']}")
+    if "busy_window_ms" in out:
+        print(f"[async timing] {gpu}: {name}: device busy over {out['busy_window_ms']:.1f} ms "
+              f"of 5 frames ({w['busy']} with a package being mapped): "
+              f"{pct(out['busy_window_device_share'])} (kernel time of both streams summed, "
+              f"{w['kernels']} kernels)")
+    return out
+
+
+def async_gates(name, run, R_gt, t_gt):
+    """The gates of the matching tests/test_async_accuracy.py test. Returns
+    (failed, summary)."""
+    import numpy as np
+
+    from orb_slam3_tpu_torch.api import evaluate
+    from orb_slam3_tpu_torch.atlas import invariants
+    from orb_slam3_tpu_torch.tracking import tracker as trk
+
+    tr = run["system"].tracker
+    ts, R, t, ok = tr.poses()
+    n = len(ok)
+    est = evaluate.camera_centers(R[ok], t[ok])
+    gt = evaluate.camera_centers(R_gt[:n][ok], t_gt[:n][ok]) if name != "async-reloc-full" \
+        else None
+    summary = dict(state=tr.state, tracked=int(ok.sum()), frames=n,
+                   n_kf=int(tr.map.kf_valid.sum()), landmarks=int(tr.map.lm_valid.sum()),
+                   violations=invariants.check_all(tr.map))
+    conds = [(not summary["violations"], f"invariants: {summary['violations'][:3]}")]
+    if name.startswith("async-mono-full"):
+        rmse, _, s_fit = evaluate.ate_rmse(ts[ok], est, ts[ok], gt, with_scale=True)
+        summary.update(ate=rmse, scale=s_fit)
+        conds += [(tr.state == trk.OK, "state not OK"),
+                  (ok.sum() >= 0.7 * n, f"only {int(ok.sum())} of {n} frames tracked"),
+                  (rmse < 0.35, f"async mono ATE {rmse:.4f}")]
+    elif name == "async-rgbd-full":
+        rmse, _, _ = evaluate.ate_rmse(ts[ok], est, ts[ok], gt, with_scale=False)
+        summary.update(ate=rmse)
+        conds += [(tr.state == trk.OK, "state not OK"),
+                  (ok.sum() >= 0.8 * n, f"only {int(ok.sum())} of {n} frames tracked"),
+                  (rmse < 0.10, f"async RGB-D metric ATE {rmse:.4f}")]
+    elif name == "async-reloc-full":
+        st = run["rec"]["settled"]
+        after_blank, resumed = st.get(RELOC_FRAMES + 2), st.get(n - 1)
+        c = evaluate.camera_centers(tr.last["R"].cpu().numpy()[None],
+                                    tr.last["t"].cpu().numpy()[None])[0]
+        c_gt = evaluate.camera_centers(R_gt[6][None], t_gt[6][None])[0]
+        summary.update(state_after_blank=after_blank, state_after_resume=resumed,
+                       centre_err=float(np.linalg.norm(c - c_gt)))
+        conds += [(after_blank is not None and after_blank != trk.OK,
+                   f"state {after_blank} after the blank frames"),
+                  (resumed == trk.OK, "never relocalized after the blackout (async)")]
+    else:
+        rmse, _, s_fit = evaluate.ate_rmse(ts[ok], est, ts[ok], gt, with_scale=True)
+        summary.update(ate=rmse, scale_fit=s_fit, imu_initialized=tr.imu.initialized,
+                       viba_stage=tr.imu.viba_stage,
+                       events=[(e["event"], round(e["scale"], 5)) for e in tr.debug_events
+                               if "scale" in e])
+        conds += [(tr.imu.initialized, "async VI never initialized the IMU"),
+                  (ok.sum() >= 0.6 * n, f"only {int(ok.sum())} of {n} frames tracked"),
+                  (abs(s_fit - 1.0) < 0.2, f"async VI metric scale {s_fit:.3f}")]
+    failed = [f"{name}: {msg}" for cond, msg in conds if not cond]
+    for msg in failed:
+        print(f"[async] GATE FAILED: {msg}")
+    print(f"[async {name}] " + ", ".join(f"{k} {v}" for k, v in summary.items()
+                                       if k != "violations")
+          + f", invariant violations {len(summary['violations'])}")
+    return failed, summary
+
+
+def phase_async(dev, gpu):
+    """Phase 13: the free-running default schedule at full width, its four
+    cells with the gates of tests/test_async_accuracy.py, K1 at the fuse on
+    the mapper's stream and K2 on a pipelined frame's inputs against their
+    plain versions, and the timings."""
+    import torch
+
+    from orb_slam3_tpu_torch import entry
+    from orb_slam3_tpu_torch.frontend import match_kernel as mk
+    from orb_slam3_tpu_torch.frontend import orb
+    from orb_slam3_tpu_torch.tracking import pose_kernel as pk
+
+    t0 = time.perf_counter()
+    mono_frames, R_m, t_m, _ = entry.plane_sequence(SLAM_FRAMES)
+    rgbd_frames, R_d, t_d = depth_frames("rgbd", 1, 25, 0.1)
+    _, reloc_frames, R_r, t_r, fields_r, views_r, _ = reloc_session(dict(kf_max_frames=5))
+    vi_fr, R_v, t_v, vi_imu = vi_frames("mono-imu", 3, ASYNC_VI_FRAMES)
+    print(f"[async] frames rendered in {time.perf_counter() - t0:.1f} s")
+    cells = [("async-mono-full", mono_frames, R_m, t_m, entry.tracker_config(dev), {}),
+             ("async-mono-full (repeat)", mono_frames, R_m, t_m, entry.tracker_config(dev),
+              dict(profile=True)),
+             ("async-rgbd-full", rgbd_frames, R_d, t_d,
+              entry.tracker_config(dev, sensor="rgbd", bf=450.0 * 0.1, th_depth=20.0), {}),
+             ("async-reloc-full", reloc_frames, R_r, t_r,
+              entry.tracker_config(dev, sensor="rgbd", bf=450.0 * 0.1, th_depth=20.0,
+                                   **fields_r),
+              dict(settle_at=(RELOC_FRAMES + 2, len(reloc_frames) - 1))),
+             ("async-vi-full", vi_fr, R_v, t_v,
+              entry.tracker_config(dev, img_wh=VI_WH, K=VI_K, sensor="mono-imu",
+                                   orb=orb.OrbConfig(n_features=1000, n_levels=8), kmax=64,
+                                   lmax=8192, local_window=6, kf_max_frames=3),
+              dict(imu=vi_imu, timestamps=[(i + 1) / 10.0 for i in range(ASYNC_VI_FRAMES)]))]
+    failed, out, runs = [], {"cells": {}}, {}
+    for name, frames, R_gt, t_gt, cfg, kw in cells:
+        t_c = time.perf_counter()
+        check(cfg.async_mapping and not cfg.deterministic_mapping and cfg.pipeline_depth == 6,
+              f"{name}: not the default free-running schedule")
+        if name == "async-reloc-full":
+            kw = dict(kw, voc=entry.train_vocabulary(views_r, cfg))
+        run = runs[name] = run_async_session(dev, name, frames, cfg, **kw)
+        f, summary = async_gates(name, run, R_gt, t_gt)
+        failed += f
+        out["cells"][name] = dict(summary, **async_summary(name, run, gpu))
+        # System.shutdown stops the cell's mapper thread
+        run["system"].shutdown()
+        check(run["system"].tracker.async_mapper is None and not run["mapper"]._thread.is_alive(),
+              f"{name}: the mapper thread outlived shutdown()")
+        print(f"[async {name}] cell with its gates: {time.perf_counter() - t_c:.1f} s")
+    a, b = (out["cells"][k]["ate"] for k in ("async-mono-full", "async-mono-full (repeat)"))
+    out["schedule_consistency"] = [a, b]
+    print(f"[async] schedule consistency (tests/test_async_accuracy.py): ATE {a:.5f} and "
+          f"{b:.5f} over two free-running runs (gate: both < 0.35)")
+    if max(a, b) >= 0.35:
+        failed.append(f"schedule consistency: ATEs {a:.4f}, {b:.4f}")
+
+    # K1 at the fuse on the mapper's stream, and K2 on a pipelined frame's
+    # inputs, against their plain versions; the kernel call on a side stream
+    # as the mapper makes it
+    mono = runs["async-mono-full"]
+    a1, kw1 = mono["rec"]["k1_fuse"]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = mk.search_by_projection_kernel(*a1, **kw1)
+    torch.cuda.synchronize()
+    err_k1, n_ok = compare_k1(got, mk.search_by_projection_plain(*a1, **kw1))
+    a2, kw2 = mono["rec"]["k2_step"]
+    err_k2 = compare_k2(pk.pose_ba(*a2, **kw2), pk.pose_ba_plain(*a2, **kw2),
+                        "pipelined frame")
+    print(f"[async] {gpu}: K1 at the fuse on the mapper's stream == plain (N={a1[0].shape[0]}, "
+          f"M={a1[4].shape[0]}, {n_ok} matched); K2 on a pipelined frame's inputs vs plain "
+          f"(N={a2[3].shape[1]}): max |err| {err_k2:.3g}")
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in ("K1", "K2", "K1 fuse", "K1 mapper thread", "K2 mapper thread")}
+    check(launches["K1 fuse"] >= 1 and launches["K2 mapper thread"] == 0,
+          f"launches by the mapper thread: {launches}")
+    out.update(failed=failed, launches=launches, err={"K1": err_k1, "K2": err_k2})
+    return out
+
+
 def main():
     import torch
 
+    # a fatal signal prints every thread's Python stack (the mapper's too)
+    faulthandler.enable()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this smoke test needs "
               "a CUDA card", file=sys.stderr)
@@ -3062,6 +3497,9 @@ def main():
     t12 = time.perf_counter()
     vi = phase_vi(dev, gpu)
     print(f"[phase] phase 12 took {time.perf_counter() - t12:.1f} s")
+    t13 = time.perf_counter()
+    asy = phase_async(dev, gpu)
+    print(f"[phase] phase 13 took {time.perf_counter() - t13:.1f} s")
     # each kernel's row: its launches on the five main paths (and by call
     # site), the bootstrap's numbers at N = lmax, K1's at the fuse, the
     # depth sessions' and the settings sessions' call sites
@@ -3074,15 +3512,20 @@ def main():
                                    "slam-depth": depth["launches"][name],
                                    "slam-settings": settings["launches"][name],
                                    "slam-loop": loop["launches"][name],
-                                   "slam-vi": vi["launches"][name]}
+                                   "slam-vi": vi["launches"][name],
+                                   "slam-async": asy["launches"][name]}
         row["launches"] = sum(row["launches_by_path"].values())
         row["max_abs_err"] = row["max_err"] = max(row["max_abs_err"], boot["err"][name],
                                                   depth["err"][name], settings["err"][name],
-                                                  loop["err"][name], vi["err"][name])
+                                                  loop["err"][name], vi["err"][name],
+                                                  asy["err"][name])
         row["bootstrap"] = b
     k1, k2 = report["kernels"]
+    # phase 13's fuse runs on the mapper thread (its launches counted per
+    # thread); loop-full's mapper thread launches K1 at the fuse and merge
+    async_fuse_k1 = asy["launches"]["K1 fuse"]
     fuse_k1 = (slam["fuse_k1"] + depth["launches"]["K1 fuse"] + settings["launches"]["K1 fuse"]
-               + loop["launches"]["K1 fuse"] + vi["launches"]["K1 fuse"])
+               + loop["launches"]["K1 fuse"] + vi["launches"]["K1 fuse"] + async_fuse_k1)
     right_k1, merge_k1 = settings["launches"]["K1 right"], loop["launches"]["K1 merge"]
     k1["launches_by_site"] = {
         "track (match_local_map)": k1["launches"] - fuse_k1 - depth["launches"]["K1 vo"]
@@ -3091,7 +3534,10 @@ def main():
         "localization VO points": depth["launches"]["K1 vo"],
         "right camera (fisheye two-camera stage)": right_k1,
         "merge (merge_duplicates_at_keyframe)": merge_k1,
-        "of which inertial tracking (after the IMU init)": vi["launches"]["K1 inertial"]}
+        "of which inertial tracking (after the IMU init)": vi["launches"]["K1 inertial"],
+        "of which the fuse on the mapper thread's stream (phase 13)": async_fuse_k1,
+        "of which the fuse and merge on the mapper thread's stream (loop-full)":
+        loop["launches"]["K1 mapper thread"]}
     k1["fuse"] = slam["k1_fuse"]
     k1["vo"] = depth["call_sites"]["K1_vo"]
     k1["right_camera"] = settings["call_sites"]["K1_right"]
@@ -3115,9 +3561,10 @@ def main():
     report["slam_settings"] = {k: v for k, v in settings.items() if k != "call_sites"}
     report["slam_loop"] = {k: v for k, v in loop.items() if k != "call_sites"}
     report["slam_vi"] = {k: v for k, v in vi.items() if k != "call_sites"}
+    report["slam_async"] = asy
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     failed = (boot["failed"] + slam["failed"] + depth["failed"] + settings["failed"]
-              + loop["failed"] + vi["failed"])
+              + loop["failed"] + vi["failed"] + asy["failed"])
     if failed:
         print(json.dumps(report, default=str))
         raise SmokeFailure(f"gates failed: {failed}")

@@ -9,9 +9,11 @@ sensor asks, each with the frame's IMU measurements for an inertial sensor
 `Camera.newWidth/newHeight` resizes every image); switch
 localization-only mode on and off, query the tracking state, reset, export
 trajectories. With a vocabulary the session relocalizes, closes loops and
-merges maps; `run_global_ba` optimizes the active map. Each entry point the
-JAX façade has beyond these raises NotImplementedError naming the slice
-(ROADMAP Queue 1 item) that brings it.
+merges maps; `run_global_ba` optimizes the active map. The session maps on
+the background mapper thread unless its config says otherwise; call
+`shutdown` before leaving. Each entry point the JAX façade has beyond these
+raises NotImplementedError naming the slice (ROADMAP Queue 1 item) that
+brings it.
 """
 
 from __future__ import annotations
@@ -135,9 +137,16 @@ class System:
     # ------------------------------------------------------------------
     def current_pose(self, settle: bool = True):
         """Latest Tcw estimate (R, t), or None before initialization: numpy
-        arrays, or with settle=False the tensors themselves (no host
-        copy). Mapping is synchronous, so there is nothing in flight."""
-        last = self.tracker.last
+        arrays after consuming the frames in flight; or with settle=False,
+        without waiting, the tensors themselves (no host copy): the newest
+        in-flight frame's pose when one is in flight."""
+        tr = self.tracker
+        if settle:
+            tr.settle()
+        elif tr._pending is not None:
+            out = tr._pending["out"]
+            return out["R"], out["t"]
+        last = tr.last
         if last is None:
             return None
         if not settle:
@@ -145,11 +154,13 @@ class System:
         return last["R"].cpu().numpy(), last["t"].cpu().numpy()
 
     def tracking_state(self) -> int:
-        """System::GetTrackingState (`System.h:160`)."""
+        """System::GetTrackingState (`System.h:160`), after the frames in
+        flight."""
+        self.tracker.settle()
         return self.tracker.state
 
     def is_lost(self) -> bool:
-        return self.tracker.state in (trk.RECENTLY_LOST, trk.LOST)
+        return self.tracking_state() in (trk.RECENTLY_LOST, trk.LOST)
 
     def activate_localization_mode(self):
         """System::ActivateLocalizationMode (`System.cc:409`): tracking goes
@@ -201,6 +212,7 @@ class System:
 
     def save_keyframe_trajectory_tum(self, path: str):
         """System::SaveKeyFrameTrajectoryTUM (`System.cc:884`)."""
+        self.tracker.sync_mapping()
         s = self.tracker.map
         kv = s.kf_valid.cpu().numpy()
         trajectory.save_tum(path, s.kf_timestamp.cpu().numpy()[kv],
@@ -212,10 +224,12 @@ class System:
         also starts one in a side thread after a loop correction."""
         from ..mapping.global_ba import GlobalBARunner
 
-        self.tracker.sync_mapping()
-        runner = GlobalBARunner(self.tracker.cfg.K, self.tracker.cfg.kind, num_iters=num_iters)
-        self.tracker.map = runner.run(self.tracker.map)
-        self.tracker._map_version += 1
+        tr = self.tracker
+        tr.sync_mapping()
+        runner = GlobalBARunner(tr.cfg.K, tr.cfg.kind, num_iters=num_iters)
+        tr.map = runner.run(tr.map)
+        tr._map_version += 1
+        tr._mapper_stale = tr.async_mapper is not None
 
     def save_atlas(self, path: str):
         _not_ported("saving the Atlas (api/checkpoint.py)", _API)
@@ -242,6 +256,23 @@ class System:
         _not_ported("the live viewer (api/viewer.py)", _API)
 
     def shutdown(self):
-        """System::Shutdown (`System.cc:515`): stops a background global BA.
-        Mapping runs on the tracking thread, so no mapper is left to stop."""
-        self.tracker.shutdown()
+        """System::Shutdown (`System.cc:515`): drain the background mapper,
+        join or abort a running background global BA and fold a finished
+        one into the map, stop the mapper thread."""
+        tr = self.tracker
+        tr.sync_mapping()
+        m = tr.async_mapper
+        gba = m.gba if m is not None and m.gba is not None else tr.gba
+        if gba is not None and gba.running:
+            gba.request_abort()
+            gba.join(timeout=60.0)
+        if gba is not None and gba.failed:
+            raise RuntimeError("the background global BA failed") from gba.error
+        if gba is not None and gba.finished:
+            tr.map = gba.reconcile(tr.map)
+            tr._map_version += 1
+            tr._mapper_stale = m is not None
+        if m is not None:
+            m.gba = None
+        tr.gba = None
+        tr.shutdown()

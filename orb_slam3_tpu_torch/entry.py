@@ -199,7 +199,8 @@ FULL_K = (450.0, 450.0, 376.0, 240.0)
 def tracker_config(device=None, img_wh=FULL_WH, K=FULL_K, **fields):
     """TrackerConfig at the flagship width on `device` (default CUDA): the
     JAX TrackerConfig defaults (kmax 128, lmax 8192, window 8, init BA of
-    20 iterations, 80 init matches, 15 inliers, radii 15 / 4 px) with
+    20 iterations, 80 init matches, 15 inliers, radii 15 / 4 px, the
+    background mapper on a free-running thread, pipeline depth 6) with
     OrbConfig(1000, 8) at 752x480 and K = (450, 450, 376, 240). A depth
     sensor (sensor="stereo" or "rgbd", with its bf) gets th_depth 20, as
     tests/test_slam_rgbd_stereo.py sets it. `fields` override any of
@@ -306,8 +307,12 @@ def slam(frames, cfg=None, device=None, localize_from=None, timer=tracker.no_tim
     `until(system)` holds. An inertial session passes `imu[i]`, the [M, 7]
     packet (t, gx, gy, gz, ax, ay, az) measured up to frame i, with frame i
     (System::Track*(..., vImuMeas)). `timestamps` replaces the frames'
-    0.05 s spacing. Returns the System, whose tracker holds the map and
-    the trajectory."""
+    0.05 s spacing. The session maps as its config says (by default on the
+    background mapper thread, TrackerConfig.async_mapping); the run ends
+    with `tracker.sync_mapping()`, so the map reflects every queued
+    keyframe. Returns the System, whose tracker holds the map and the
+    trajectory; the caller shuts it down (`System.shutdown`), which stops
+    the mapper thread."""
     from .api.system import System
 
     if settings_path is not None:
@@ -329,7 +334,7 @@ def slam(frames, cfg=None, device=None, localize_from=None, timer=tracker.no_tim
                   None if imu is None else imu[i])
         if until is not None and until(sys_):
             break
-    sys_.tracker.settle()
+    sys_.tracker.sync_mapping()
     return sys_
 
 

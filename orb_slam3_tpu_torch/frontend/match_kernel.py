@@ -9,17 +9,22 @@ written to device memory (csrc/match_kernel.cu).
 
 `search_by_projection_kernel` launches the kernel for CUDA tensors and runs
 `search_by_projection_plain` for CPU tensors only. `launches` counts kernel
-launches.
+launches, under a lock (the tracker and the background mapper launch from
+two threads); `launches_by_thread` splits the count by the launching
+thread's name (the mapper's thread is "mapper").
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 BIG = 100000
 launches = 0
+launches_by_thread: dict = {}
+_count_lock = threading.Lock()
 
 
 def search_by_projection_plain(uv_pred, pred_octave, pred_desc, pred_valid,
@@ -100,5 +105,8 @@ def search_by_projection_kernel(uv_pred, pred_octave, pred_desc, pred_valid,
     if rc != 0:
         raise RuntimeError(f"match_kernel launch failed with CUDA error {rc}")
     global launches
-    launches += 1
+    with _count_lock:
+        launches += 1
+        who = threading.current_thread().name
+        launches_by_thread[who] = launches_by_thread.get(who, 0) + 1
     return idx, dist, ok

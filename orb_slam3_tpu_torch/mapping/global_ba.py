@@ -146,7 +146,10 @@ class GlobalBARunner:
         """Start the side-thread GBA on a snapshot of s (`new thread(&
         LoopClosing::RunGlobalBundleAdjustment, ...)`). A failure marks the
         campaign failed and keeps the exception in `error`; tracking goes
-        on, as in the reference."""
+        on, as in the reference. On CUDA the campaign runs on a stream of
+        its own, after the launching stream's work on the snapshot (an
+        event), and its stream is drained before the thread ends, so the
+        result is complete once `finished`."""
         if self.running:
             return
         self.snapshot = s
@@ -154,10 +157,22 @@ class GlobalBARunner:
         self.failed = False
         self.error = None
         self._abort.clear()
+        dev = s.device
+        ready = None
+        if dev.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dev))
 
         def _target():
             try:
-                self.result = self.run(self.snapshot)
+                stream = None if ready is None else torch.cuda.Stream(dev)
+                with torch.cuda.stream(stream):
+                    if stream is not None:
+                        stream.wait_event(ready)
+                    result = self.run(self.snapshot)
+                    if stream is not None:
+                        stream.synchronize()
+                self.result = result
             except Exception as e:  # noqa: BLE001 -- kept for the caller to read
                 self.failed = True
                 self.error = e

@@ -2,7 +2,8 @@
 of orb_slam3_tpu/mapping/pipeline.py).
 
 The LocalMapping work unit (`LocalMapping.cc:64-282`) in three stages over
-MapState, as the tracker runs it synchronously for a visual sensor:
+MapState, as the tracker runs it synchronously for a visual sensor and
+the background mapper (`runtime/mapper.py`) runs it for every sensor:
 
     map_stage_pre  : frame statistics, keyframe insertion, triangulation
                      against the best covisible neighbours, the
@@ -18,11 +19,13 @@ once: the keyframe row, the two top-k lists and the cull flag. A depth
 sensor's keyframe also makes landmarks from its measured depths, and its
 local BA runs stereo edges.
 
-The inertial sensors run the JAX package's per-stage helpers instead
-(`insert_keyframe_pkg`, `triangulate_mono`, `fuse_recent` with K1 over the
-last 4 keyframes, `ba_window`, `cull`; JAX `pipeline.py:81-237`), between
-which the tracker places the IMU's interval commit, the visual-inertial
-BA and the inertial culling and initialization.
+On the synchronous path the inertial sensors run the JAX package's
+per-stage helpers instead (`insert_keyframe_pkg`, `triangulate_mono`,
+`fuse_recent` with K1 over the last 4 keyframes, `ba_window`, `cull`; JAX
+`pipeline.py:81-237`), between which the tracker places the IMU's interval
+commit, the visual-inertial BA and the inertial culling and
+initialization; the mapper runs the fused `map_stage_pre` for them too, as
+the JAX mapper does.
 """
 
 from __future__ import annotations
@@ -45,9 +48,8 @@ from . import fuse, local_mapper
 
 @dataclasses.dataclass
 class KFPackage:
-    """One keyframe's worth of tracking output. The JAX package's fields for
-    the background mapper (the IMU interval cut at request time and the
-    gauge version) come with that mapper (ROADMAP Queue 1 item 10)."""
+    """One keyframe's worth of tracking output: the entry of the mapper's
+    queue (`runtime/mapper.py`), or the synchronous path's argument."""
 
     R: torch.Tensor              # [3,3] Tcw at creation
     t: torch.Tensor              # [3]
@@ -65,6 +67,16 @@ class KFPackage:
     # (mnVisible / mnFound, Tracking::SearchLocalPoints bookkeeping)
     stat_vis: Optional[torch.Tensor] = None    # [L] int32
     stat_found: Optional[torch.Tensor] = None  # [L] int32
+    # inertial sensors: the raw IMU interval (acc, gyro, dts, ts) from the
+    # previous keyframe to this one, cut by the tracker at request time
+    # (ImuState.cut_interval) and owned by the mapper's ImuState after
+    # delivery (the mlQueueImuData -> preintegration hand-off)
+    imu_interval: Optional[tuple] = None
+    # the mapper commit version whose gauge the pose is expressed in (the
+    # tracker's last adopted commit): an inertial gauge event or a loop /
+    # merge / GBA correction committed between enqueue and processing
+    # re-expresses the pose on arrival (AsyncMapper._regauge_pkg)
+    gauge_version: int = 0
 
 
 def apply_frame_stats(s: atlas_state.MapState, pkg: KFPackage):
@@ -86,7 +98,7 @@ def map_stage_pre(kind: int, K8, s: atlas_state.MapState, R, t, timestamp,
                   feat_lm, feat_ur, feat_depth, stat_vis, stat_found,
                   parent_row: int, scale_factors, bf, th_depth, min_depth,
                   with_depth: bool, n_tri: int = 3, n_fuse: int = 4,
-                  wnd: int = 10, local_window: int = 6):
+                  wnd: int = 10, local_window: int = 6, kf_row_host=None):
     """Insert one keyframe package and run the pre-BA mapping stages.
     Returns (state, kf_row int, ba_rows [wnd] int32, n_fixed 0-dim).
 
@@ -102,7 +114,11 @@ def map_stage_pre(kind: int, K8, s: atlas_state.MapState, R, t, timestamp,
     the 100 nearest, becomes a landmark at its measured depth
     (`Tracking.cc:3247-3331`; ties in depth go to the lower feature, as the
     JAX program's stable argsort gives them), and triangulation prefers the
-    measured depth (`local_mapper.triangulate_pair`)."""
+    measured depth (`local_mapper.triangulate_pair`).
+
+    kf_row_host: the caller's host mirror of the append position (n_kf
+    before the insert: the arena is a bump allocator); given, the keyframe
+    row is not read back from the device."""
     Kc, L = s.kmax, s.lmax
     dev = s.device
 
@@ -117,7 +133,7 @@ def map_stage_pre(kind: int, K8, s: atlas_state.MapState, R, t, timestamp,
         s, R, t, timestamp, feat_xy, feat_octave, feat_angle, feat_desc, feat_valid,
         feat_lm=feat_lm, feat_ur=feat_ur, feat_depth=feat_depth, parent=parent, prev=parent)
 
-    kf = int(kf)
+    kf = int(kf) if kf_row_host is None else int(kf_row_host)
     if with_depth:
         F = feat_xy.shape[0]
         has_depth = (feat_depth > min_depth) & feat_valid & (s.kf_feat_lm[kf] < 0)
@@ -180,9 +196,11 @@ def map_stage_pre(kind: int, K8, s: atlas_state.MapState, R, t, timestamp,
 
 
 def run_pre_stage(s, pkg: KFPackage, cfg, base_sensor: str, parent_row: int,
-                  scale_factors):
+                  scale_factors, kf_row_host=None):
     """map_stage_pre on a package, with its optional fields made concrete.
-    Returns (state, kf_row int, ba_rows, n_fixed)."""
+    Returns (state, kf_row int, ba_rows, n_fixed). `kf_row_host` is the
+    caller's host mirror of the append position (the background mapper
+    keeps one), as the JAX stage takes it (`runtime/mapper.py:404-407`)."""
     L, F = s.lmax, s.fmax
     dev = s.device
     z_i32 = torch.zeros((L,), dtype=torch.int32, device=dev)
@@ -199,16 +217,17 @@ def run_pre_stage(s, pkg: KFPackage, cfg, base_sensor: str, parent_row: int,
         pkg.stat_found if pkg.stat_found is not None else z_i32,
         parent_row, scale_factors, cfg.bf, cfg.th_depth, cfg.min_depth,
         with_depth=base_sensor != "mono" and pkg.feat_depth is not None,
-        wnd=cfg.local_window + 4, local_window=cfg.local_window,
+        wnd=cfg.local_window + 4, local_window=cfg.local_window, kf_row_host=kf_row_host,
     )
 
 
 def run_visual_ba(s: atlas_state.MapState, cfg, scale_factors, rows, n_fixed,
                   base_sensor: str, iters: int = 8):
     """Windowed local BA (`Optimizer::LocalBundleAdjustment`) over the
-    window rows, with stereo edges for a depth sensor, run to its end: the
-    abort between iteration chunks serves the background mapper, which
-    comes with a later slice."""
+    window rows, with stereo edges for a depth sensor, run to its end in one
+    call, as the JAX mapper dispatches it (`runtime/mapper.py:420-426`): the
+    mapper's preemption is skipping the BA while packages wait
+    (`AsyncMapper.max_ba_skips`), not an abort between iterations."""
     s, _ = local_mapper.local_ba(
         cfg.kind, cfg.K, s, rows, n_fixed=n_fixed, window=cfg.local_window + 4,
         iters=iters, scale_factors=scale_factors, stereo=base_sensor != "mono", bf=cfg.bf)

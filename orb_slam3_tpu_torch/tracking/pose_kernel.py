@@ -13,13 +13,16 @@ Batched: problem b of B is one thread-block cluster of `cluster_size(N)`
 CTAs (csrc/pose_kernel.cu). `pose_ba` launches the kernel for CUDA tensors
 and runs `pose_ba_plain` (the same arithmetic, vectorised over rows) for CPU
 tensors only. `launches` counts kernel launches, `stereo_launches` those of
-the stereo template.
+the stereo template, `launches_by_thread` the launches by the launching
+thread's name; all under one lock (the tracker and the background mapper
+launch from two threads).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -27,6 +30,8 @@ CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
 launches = 0
 stereo_launches = 0
+launches_by_thread: dict = {}
+_count_lock = threading.Lock()
 
 
 def _rodrigues(px, py, pz):
@@ -292,6 +297,9 @@ def pose_ba(K, R0, t0, uv, Xw, inv_sigma2, valid, ur=None, bf=None,
     if rc != 0:
         raise RuntimeError(f"pose_kernel launch failed with CUDA error {rc}")
     global launches, stereo_launches
-    launches += 1
-    stereo_launches += int(stereo)
+    with _count_lock:
+        launches += 1
+        stereo_launches += int(stereo)
+        who = threading.current_thread().name
+        launches_by_thread[who] = launches_by_thread.get(who, 0) + 1
     return R, t, inl, n

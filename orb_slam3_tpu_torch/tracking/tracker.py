@@ -1,6 +1,6 @@
-"""Tracking state machine with synchronous local mapping (port of the
-visual paths of orb_slam3_tpu/tracking/tracker.py: mono, stereo and RGB-D
-with a pinhole or a KB8 fisheye camera).
+"""Tracking state machine with background or synchronous local mapping
+(port of orb_slam3_tpu/tracking/tracker.py: mono, stereo and RGB-D with a
+pinhole or a KB8 fisheye camera, each also with an IMU).
 
 - `initialize_monocular`: `Tracker._try_initialize`
   (MonocularInitialization + CreateInitialMapMonocular,
@@ -18,9 +18,7 @@ with a pinhole or a KB8 fisheye camera).
 - `Tracker`: the state machine of `Tracking::Track()` (`Tracking.cc:
   1794-2332`): NOT_INITIALIZED -> OK -> RECENTLY_LOST -> LOST (a new map in
   the Atlas), the constant-velocity motion model, NeedNewKeyFrame, and
-  keyframe insertion followed by the whole local-mapping stack on the same
-  frame (`mapping/pipeline.py`: the JAX tracker's `async_mapping=False`
-  path). A stereo pair is two extractions and `frontend/stereo.match_stereo`;
+  keyframe insertion. A stereo pair is two extractions and `frontend/stereo.match_stereo`;
   a non-rectified fisheye pair (`stereo_fisheye`) is matched and
   triangulated by `match_stereo_fisheye`, its depth bound as ur = u - bf/z,
   and the right camera's features join the pose BA through the rig's
@@ -29,9 +27,27 @@ with a pinhole or a KB8 fisheye camera).
   (`StereoInitialization`). A pinhole camera with rad-tan `dist_coeffs`
   has its keypoints undistorted right after extraction. With mapping paused
   (localization mode) a depth sensor tracks against the frozen map plus the
-  previous frame's visual-odometry points. Each frame's outcome is read on
-  that frame, as the JAX tracker does at `pipeline_depth=1`: one host read
-  of the outcome scalars besides the two branch reads of the fused step.
+  previous frame's visual-odometry points.
+
+Mapping runs as the config says, with the JAX TrackerConfig's defaults:
+- `async_mapping=True` (the default): a keyframe becomes a KFPackage
+  queued to the background mapper (`runtime/mapper.py`, on a thread and a
+  CUDA stream of its own), which runs the whole local-mapping stack, the
+  inertial init and refinement and the loop closer, and publishes commits;
+  the tracker adopts the latest at each frame boundary (re-anchoring its
+  pose after a loop, merge, global BA or inertial gauge change) and buffers
+  the landmark statistics of its frames into the next package.
+  `deterministic_mapping=True` steps the same mapper inline, one package
+  per frame boundary, with no thread.
+- `async_mapping=False`: the keyframe's whole mapping stack runs on the
+  frame that inserts it (`mapping/pipeline.py`).
+- `pipeline_depth` (6 by default) frames of the fused visual step may be in
+  flight: frame i's outcome scalars are consumed up to depth - 1 frames
+  later, as soon as their copy to pinned host memory has landed (a CUDA
+  event; on the CPU at once), and the next frame's prediction chains on the
+  device from the previous step's outputs meanwhile. The state machine
+  then lags by up to depth - 1 frames. At depth 1, and always for an
+  inertial sensor, each frame's outcome is consumed on that frame.
 
 An inertial sensor ("mono-imu", "stereo-imu", "rgbd-imu") takes each
 frame's IMU packet (`process(..., imu=...)`, `tracking/vi_tracker.py`):
@@ -53,16 +69,16 @@ starts a global BA in a side thread after a loop correction
 (`mapping/global_ba.py`), whose result is reconciled into the map at a
 later keyframe.
 
-Left out of the JAX class, with the slice that brings it: the background
-mapper (`runtime/mapper.py`) with its commits and the software pipeline of
-in-flight frames (ROADMAP Queue 1 item 10). Inertial sensors run at depth
-1 in the JAX tracker too.
+The JAX tracker's readiness probe and host-copy choreography around its
+device link are not ported: the probe here is a CUDA event after the
+outcome's copy to pinned memory.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+from collections import deque
 from typing import Callable, Optional
 
 import numpy as np
@@ -80,6 +96,7 @@ from ..mapping import global_ba, local_mapper, pipeline
 from ..ops import lie
 from ..ops.scatter import add_at
 from ..place import recognition, vocab as vocab_mod
+from ..runtime import mapper as mapper_mod
 from ..utils import verbose
 from ..utils.timing import GLOBAL_TIMER
 from . import track as track_mod
@@ -89,6 +106,10 @@ NOT_INITIALIZED = 0
 OK = 1
 RECENTLY_LOST = 2
 LOST = 3
+
+# the frame's outcome goes through the software pipeline, which records it
+# (Tracker._finalize_one)
+PENDING = object()
 
 
 @dataclasses.dataclass
@@ -131,6 +152,22 @@ class TrackerConfig:
     # after extraction (Frame::UndistortKeyPoints, Frame.cc:747-780); None
     # for rectified or distortion-free input
     dist_coeffs: torch.Tensor = None
+    # run the per-keyframe mapping stack (triangulation, fuse, local BA,
+    # culling, the inertial init and refinement, loop detection) on a
+    # background mapper thread over immutable snapshots: the reference's
+    # LocalMapping / LoopClosing threads (System.cc:197,214), for every
+    # sensor
+    async_mapping: bool = True
+    # deterministic scheduling of that mapper: the same queue / commit /
+    # adopt dataflow, stepped inline at each frame boundary (one package per
+    # frame) instead of a free-running thread, reproducible run to run
+    deterministic_mapping: bool = False
+    # software-pipeline depth of the fused visual tracking step: up to
+    # `pipeline_depth` frames in flight before the host consumes frame
+    # i - depth + 1's outcome scalars; the state machine (loss, keyframe
+    # decisions) lags by up to depth - 1 frames, the bounded staleness the
+    # mapper runs under already. 1 restores the synchronous loop
+    pipeline_depth: int = 6
 
     def scale_factors(self):
         return self.orb.scale_factors(self.K.device)
@@ -273,9 +310,9 @@ def local_map(s: atlas_state.MapState, ref_kf: int):
 def track_frame(cfg: TrackerConfig, s: atlas_state.MapState, feats: orb.Features,
                 ref_kf: int, R_last, t_last, velocity=None, tracked=None,
                 last_inliers: int = 0, in_map=None, frame_ur=None, frame_depth=None,
-                th_depth_m: float = 0.0, feats_r=None, pred=None):
-    """Track one frame against the map (`Tracker._track_frame_fused`
-    without chained prediction). The pose is
+                th_depth_m: float = 0.0, feats_r=None, pred=None, chain=None):
+    """Track one frame against the map (`Tracker._track_frame_fused`). The
+    pose is
     predicted by the constant-velocity model when `velocity` = (Rv, tv) is
     given, else it is the last pose. `tracked` [L] is the previous frame's
     tracked mask; `in_map` defaults to `local_map(s, ref_kf)`. With
@@ -286,17 +323,29 @@ def track_frame(cfg: TrackerConfig, s: atlas_state.MapState, feats: orb.Features
     image's features of a fisheye rig (cfg.stereo_fisheye), the step adds
     the right-camera stage: the local map matched through the extrinsics
     (K1) and the pose refined over both cameras. `pred` = (R, t) replaces
-    the prediction (the IMU's, after inertial initialization). Returns the
-    track_frame_visual outputs and the predicted pose (R_pred, t_pred)."""
+    the prediction (the IMU's, after inertial initialization). `chain`, the
+    outputs of the previous step still in flight, replaces the host state:
+    its pose, velocity, velocity flag, tracked mask and inlier count feed
+    this step on the device (the software pipeline; R_last / t_last,
+    velocity, tracked and last_inliers are then ignored). Returns the
+    track_frame_visual outputs and the predicted pose (R_pred, t_pred), the
+    fallback pose of a failed frame (the chained step's last pose)."""
     dev = s.device
     if in_map is None:
         in_map = local_map(s, ref_kf)
-    if pred is not None:
+    chain_pred = chain is not None
+    if chain_pred:
+        # the motion-model prediction is chained inside the step
+        R_pred, t_pred, R_last, t_last = chain["Rv"], chain["tv"], chain["R"], chain["t"]
+        have_velocity, tracked, last_inliers = chain["has_vel"], chain["tracked"], chain["n"]
+    elif pred is not None:
         R_pred, t_pred = pred
     elif velocity is not None:
         R_pred, t_pred = lie.se3_mul(velocity[0], velocity[1], R_last, t_last)
     else:
         R_pred, t_pred = R_last, t_last
+    if not chain_pred:
+        have_velocity = velocity is not None
     kf = max(ref_kf, 0)
     ref_lm_rows = s.kf_feat_lm[kf]
     ref_has_lm = ((ref_lm_rows >= 0) & s.kf_feat_valid[kf] if ref_kf >= 0
@@ -317,17 +366,17 @@ def track_frame(cfg: TrackerConfig, s: atlas_state.MapState, feats: orb.Features
         s.kf_feat_desc[kf], ref_has_lm, ref_lm_rows,
         feats.xy, feats.descriptors, feats.octave, feats.valid, frame_ur,
         R_pred, t_pred, R_last, t_last,
-        velocity is not None, tracked, last_inliers,
+        have_velocity, tracked, last_inliers,
         cfg.match_radius_coarse, cfg.match_radius_fine, cfg.min_inliers,
         cfg.scale_factors(), float(cfg.img_wh[0]), float(cfg.img_wh[1]),
-        use_stereo=use_stereo,
+        use_stereo=use_stereo, chain_pred=chain_pred,
         with_census=frame_depth is not None, feat_depth=frame_depth,
         min_depth=cfg.min_depth, th_depth_m=th_depth_m,
         R_kf=s.kf_R[kf] if ref_kf >= 0 else None,
         t_kf=s.kf_t[kf] if ref_kf >= 0 else None,
         **two_cam,
     )
-    out["R_pred"], out["t_pred"] = R_pred, t_pred
+    out["R_pred"], out["t_pred"] = (R_last, t_last) if chain_pred else (R_pred, t_pred)
     return out
 
 
@@ -364,13 +413,16 @@ def _np(a):
 
 
 class Tracker:
-    """The tracker of a pinhole or KB8 camera (mono, stereo or RGB-D) with
-    synchronous local mapping.
+    """The tracker of a pinhole or KB8 camera (mono, stereo or RGB-D, each
+    also with an IMU), with the background mapper or synchronous mapping as
+    the config says.
 
     `cfg.K` may be a tensor, whose device the tracker runs on, or anything
     numpy reads, which is moved to `device` (default CUDA; RuntimeError
     without it). Feed frames with `process`; read the trajectory with
-    `poses`. Set `mapping_paused` for localization-only mode."""
+    `poses`. Set `mapping_paused` for localization-only mode. `settle`
+    consumes the frames in flight, `sync_mapping` also drains the mapper;
+    call `shutdown` before leaving (it stops the mapper thread)."""
 
     def __init__(self, cfg: TrackerConfig, device=None):
         if cfg.sensor not in ("mono", "stereo", "rgbd", "mono-imu", "stereo-imu", "rgbd-imu"):
@@ -424,8 +476,15 @@ class Tracker:
         self._caches = {}
         self._last_reloc_frame = -(10 ** 9)  # keyframe cooldown after a relocalization
         self.loop_closer = None       # LoopCloser (attach_loop_closer)
-        self.gba = None               # background GlobalBARunner
+        self.gba = None               # background GlobalBARunner (synchronous mapping)
         self.background_gba = True    # global BA in a side thread after a loop correction
+        self.async_mapper = None      # runtime.mapper.AsyncMapper (made at the first package)
+        self._mapper_stale = False    # the tracker changed the map outside the mapper
+        self._mapper_gauge_version = 0  # the last adopted commit's version
+        self._stat_vis = None         # buffered landmark statistics of the next package
+        self._stat_found = None
+        self._last_kf_req_ts = -1e9   # timestamp of the last queued keyframe
+        self._pipeline = deque()      # in-flight frames of the fused visual step
         self.debug_events: list[dict] = []  # inertial init / refinement history (SaveDebugData)
         self._vi_prior = None         # ConstraintPoseImu chain (Optimizer.cc:4875)
         self._last_avg_a = None       # the excitation gate's previous mean acceleration
@@ -441,17 +500,308 @@ class Tracker:
         voc = dataclasses.replace(voc, centers=voc.centers.to(self.device),
                                   weights=voc.weights.to(self.device))
         self.loop_closer = lc.LoopCloser(voc, self.cfg.kmax, scale_factors=self.scale_factors)
+        if self.async_mapper is not None:
+            self.async_mapper.loop_closer = self.loop_closer
 
     def _stop_gba(self):
-        """Abort a running global BA and wait for it (mbStopGBA)."""
-        if self.gba is not None and self.gba.running:
-            self.gba.request_abort()
-            self.gba.join(timeout=60.0)
-        self.gba = None
+        """Abort a running global BA, the tracker's or an idle mapper's, and
+        wait for it (mbStopGBA)."""
+        for owner in (self, self.async_mapper):
+            gba = None if owner is None else owner.gba
+            if gba is not None and gba.running:
+                gba.request_abort()
+                gba.join(timeout=60.0)
+            if owner is not None:
+                owner.gba = None
+
+    # ------------------------------------------------------------------
+    # the background mapper (runtime/mapper.py dataflow)
+    # ------------------------------------------------------------------
+    def _ensure_mapper(self):
+        """Make and start the mapper at the first package; reseed it with the
+        tracker's map after the tracker changed the map itself (a new map, a
+        relocalization map switch, compaction, a re-initialization)."""
+        if self.async_mapper is None:
+            self.async_mapper = mapper_mod.AsyncMapper(
+                self.cfg, self.scale_factors, self.base_sensor, loop_closer=self.loop_closer,
+                background_gba=self.background_gba, inline=self.cfg.deterministic_mapping)
+            self.async_mapper.start(self.map, self.last_kf_row, imu=self.imu)
+        elif self._mapper_stale:
+            self.async_mapper.flush()
+            self.async_mapper.poll_commit()  # the tracker's map is authoritative
+            self.async_mapper.set_state(self.map, self.last_kf_row, imu=self.imu)
+        else:
+            return
+        self._mapper_stale = False
+        self._mapper_gauge_version = self.async_mapper._version
+
+    def _adopt_commits(self):
+        """At a frame boundary: step an inline mapper once, raise its error,
+        adopt the latest commit (the reference's map-update detection,
+        Tracking.cc:1888-1896)."""
+        m = self.async_mapper
+        if m is None:
+            return
+        if m.inline:
+            m.step_inline()  # the fixed schedule: one package per frame boundary
+        if m.error is not None:
+            err, m.error = m.error, None
+            raise RuntimeError("the background mapper failed") from err
+        c = m.poll_commit()
+        if c is not None and not self._mapper_stale:
+            if c.big_change:
+                # frames in flight were chained in the old world
+                self._finalize_pending()
+            self._adopt(c)
+
+    def _adopt(self, c):
+        """Take commit `c` as the map: the tracker's stream waits for its
+        event and marks its tensors; the relative frame poses rescale by its
+        gauge scale; after a big change the pose is carried over through
+        the package's keyframe, T_cur_new = (T_cur T_pkg^-1, its translation
+        scaled by the gauge scale) T_kf_new (small local-BA refinements do
+        not move it: the next pose BA converges onto the refined map); the
+        host caches take the commit's counts; the IMU takes its biases (and
+        its velocity on a gauge change or at the init); a bad-IMU flag
+        resets the active map."""
+        stream = None
+        if c.event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(c.event)
+        mapper_mod.hand_over((c.state, c.stats, c.imu_state), stream)
+        s_new = c.state
+        self._mapper_gauge_version = c.version
+        gs = c.gauge_scale
+        if gs != 1.0:
+            for f in self.trajectory:
+                f.t_rel = f.t_rel * gs
+        if c.kf_row >= 0:
+            self.last_kf_row = int(c.kf_row)
+        if c.big_change and c.kf_row >= 0 and self.last is not None:
+            R_rel, t_rel = lie.se3_mul(self.last["R"], self.last["t"],
+                                       *lie.se3_inv(c.pkg_R, c.pkg_t))
+            if gs != 1.0:
+                t_rel = t_rel * gs
+            Rn, tn = lie.se3_mul(R_rel, t_rel, s_new.kf_R[c.kf_row], s_new.kf_t[c.kf_row])
+            self.last["R"], self.last["t"] = lie.normalize_rotation(Rn), tn
+        self.map = s_new
+        self._map_version += 1
+        self.debug_events.extend(c.debug_events)
+        if c.stats is not None:
+            n_kf, n_lm, *rm = c.stats.tolist()
+            v = self._map_version
+            self._caches["n_kf"] = (v, n_kf)
+            self._caches["n_lm"] = (v, n_lm)
+            if c.kf_row >= 0:
+                self._caches["kf_ts"] = ((v, int(c.kf_row)), c.pkg_ts)
+                mo = 3 if n_kf > 2 else min(n_kf, 2)
+                if mo >= 1:
+                    self._caches["ref_matches"] = ((v, int(c.kf_row), mo), max(rm[mo - 1], 1))
+        if c.imu_state is not None and self.imu is not None:
+            st = c.imu_state
+            was_init = self.imu.initialized
+            self.imu.initialized = st["initialized"]
+            self.imu.viba_stage = st["viba_stage"]
+            self.imu.bg, self.imu.ba = st["bg"], st["ba"]
+            if c.big_change or (st["initialized"] and not was_init):
+                self.imu.vel = st["vel"]
+        if c.bad_imu and self.imu is not None:
+            # mbBadImu found on the mapper: reset the active map
+            # (LocalMapping.cc:136-146)
+            self.imu.bad = True
+            self._reset_active_map()
+            return
+        if c.big_change:
+            self.velocity = None
+            self._tracked_lms = None
+            self._vi_prior = None
+
+    def _mapper_barrier(self):
+        """Drain the mapper and adopt its final commit before the tracker
+        changes the map itself (RequestStop + isStopped, LoopClosing.cc:
+        975-999), and take back the mapper-owned IMU bookkeeping so that
+        the tracker's surgery works on the real intervals."""
+        m = self.async_mapper
+        if m is None:
+            return
+        c = m.flush()
+        if c is not None and not self._mapper_stale:
+            self._adopt(c)
+        mimu = m.export_imu()
+        if mimu is not None and self.imu is not None:
+            imu = self.imu
+            imu.kf_buffers = mimu.kf_buffers
+            imu.first_kf_ts, imu.init_ts = mimu.first_kf_ts, mimu.init_ts
+            imu.last_scale_refine_ts, imu.tinit = mimu.last_scale_refine_ts, mimu.tinit
+
+    def sync_mapping(self):
+        """Barrier: consume the frames in flight and drain the mapper, so that
+        `map` reflects every queued package (System's save, shutdown and
+        global-BA entry points call it)."""
+        self._finalize_pending()
+        self._mapper_barrier()
 
     def shutdown(self):
-        """Stop the background global BA, if one runs."""
+        """Drain and stop the mapper thread and any background global BA.
+        Callers of Tracker or System must call this (System.shutdown does)
+        before leaving: a mapper thread left inside a CUDA call at teardown
+        aborts the process."""
+        self.sync_mapping()
         self._stop_gba()
+        if self.async_mapper is not None:
+            self.async_mapper.stop()
+            self.async_mapper = None
+
+    def _stats_reduce(self):
+        """The buffered per-frame landmark statistics summed into one [L]
+        array each (pairwise, in frame order)."""
+        if self._stat_vis is None:
+            return None, None
+        vis, fnd = self._stat_vis[0], self._stat_found[0]
+        for v, f in zip(self._stat_vis[1:], self._stat_found[1:]):
+            vis, fnd = vis + v, fnd + f
+        self._stat_vis, self._stat_found = [vis], [fnd]
+        return vis, fnd
+
+    def _add_frame_stats(self, vis32, fnd32):
+        """A tracked frame's landmark statistics (mnVisible / mnFound,
+        Tracking::SearchLocalPoints): buffered for the next package while
+        the mapper owns the map, else written into the map."""
+        if self.cfg.async_mapping:
+            if self._stat_vis is None:
+                self._stat_vis, self._stat_found = [], []
+            self._stat_vis.append(vis32)
+            self._stat_found.append(fnd32)
+        else:
+            self.map = dataclasses.replace(self.map, lm_visible=self.map.lm_visible + vis32,
+                                           lm_found=self.map.lm_found + fnd32)
+
+    def _keyframe(self, feats, timestamp, n_inliers: int):
+        if self.cfg.async_mapping:
+            with GLOBAL_TIMER.stage("track.kf_request"):
+                self._request_keyframe(feats, timestamp, n_inliers)
+        else:
+            with GLOBAL_TIMER.stage("track.kf_insert_sync"):
+                self._insert_keyframe(feats, timestamp, n_inliers)
+
+    def _request_keyframe(self, feats, timestamp, n_inliers: int) -> bool:
+        """The asynchronous keyframe insertion: package the frame and queue
+        it to the mapper (LocalMapping::InsertKeyFrame). An inertial package
+        carries the IMU interval cut from the open window and is forced in;
+        a refused package gives its interval back. The first package
+        blocks until it is mapped, as in the JAX tracker. Returns whether
+        it was queued. A visual package waits for the mapper to be idle, so
+        it is never refused and the mapper lags the tracker by one package
+        at most."""
+        self._ensure_mapper()
+        stat_vis, stat_found = self._stats_reduce()
+        pkg = pipeline.KFPackage(
+            R=self.last["R"], t=self.last["t"], timestamp=timestamp,
+            feat_xy=feats.xy, feat_octave=feats.octave, feat_angle=feats.angle,
+            feat_desc=feats.descriptors, feat_valid=feats.valid, feat_lm=self._feat_lm,
+            feat_ur=self._frame_ur, feat_depth=self._frame_depth, n_inliers=n_inliers,
+            stat_vis=stat_vis, stat_found=stat_found,
+            imu_interval=self.imu.cut_interval() if self.imu is not None else None,
+            gauge_version=self._mapper_gauge_version)
+        first = self.async_mapper.n_processed == 0
+        inertial = pkg.imu_interval is not None
+        if not self.async_mapper.enqueue(pkg, force=inertial, wait=not inertial):
+            if pkg.imu_interval is not None:
+                self.imu.restore_interval(pkg.imu_interval)
+            return False  # saturated: retry on a later frame (Tracking.cc:3196)
+        self._stat_vis = self._stat_found = None
+        self.frames_since_kf = 0
+        self._last_kf_req_ts = float(timestamp)
+        self.last_kf_inliers = n_inliers
+        if first:
+            self._mapper_barrier()
+        return True
+
+    # ------------------------------------------------------------------
+    # the software pipeline of the fused visual step
+    # ------------------------------------------------------------------
+    @property
+    def _pending(self):
+        """The newest in-flight frame, or None."""
+        return self._pipeline[-1] if self._pipeline else None
+
+    def settle(self):
+        """Consume every frame in flight, so that the state, the pose and the
+        trajectory reflect the last processed frame."""
+        self._finalize_pending()
+
+    def _finalize_pending(self):
+        while self._pipeline:
+            self._finalize_one(self._pipeline.popleft())
+
+    def _depth(self) -> int:
+        """Inertial sensors run at depth 1: keyframe creation keeps step with
+        the IMU's ingestion, or a keyframe's interval would take the lagged
+        frames' measurements (Tracking::PreintegrateIMU, Tracking.cc:
+        1624-1735)."""
+        return 1 if self.imu is not None else max(1, self.cfg.pipeline_depth)
+
+    def _finalize_to_depth(self):
+        """Consume the oldest in-flight frames: each whose outcome has
+        already reached the host, then as many as keep the pipeline under
+        its depth."""
+        depth = self._depth()
+        while self._pipeline:
+            if len(self._pipeline) < depth and not self._is_ready(self._pipeline[0]):
+                break
+            self._finalize_one(self._pipeline.popleft())
+
+    def _is_ready(self, p) -> bool:
+        """The readiness probe: the frame's outcome copy has landed in pinned
+        host memory (its CUDA event has completed). Always on the CPU."""
+        ev = p.get("ready")
+        return ev is None or ev.query()
+
+    def _finalize_one(self, p):
+        """Consume one fused step's outcome: the state machine, the motion
+        model, the statistics, the keyframe decision, the trajectory
+        record."""
+        out, feats, timestamp = p["out"], p["feats"], p["ts"]
+        # the frame's depth bindings, for its census and its package
+        self._frame_ur, self._frame_depth = p["ur"], p["depth"]
+        cfg = self.cfg
+        ev = p.get("ready")
+        if ev is not None:
+            ev.synchronize()
+            scal = p["scal_host"].tolist()
+        else:
+            scal = out["scal"].tolist()
+        n_inliers, vel_poisoned = scal[0], scal[1]
+        self.last_inliers = n_inliers
+        self._census = (scal[2], scal[3]) if p["depth"] is not None else None
+        if n_inliers < cfg.min_inliers:
+            self.lost_count += 1
+            self.state = RECENTLY_LOST if self.lost_count < 5 else LOST
+            # the prediction stands as the pose estimate
+            self.last = {"R": p["R_pred"], "t": p["t_pred"], "feats": feats, "ts": timestamp}
+            self.velocity = None
+            self._tracked_lms = None
+            self._vi_prior = None
+            ok = self._try_relocalize(feats)
+            if not ok:
+                self._new_map_if_lost()
+            self._record_frame(timestamp, ok)
+            return
+        self.lost_count = 0
+        self.state = OK
+        self.velocity = None if vel_poisoned else (out["Rv"], out["tv"])
+        self.last = {"R": out["R"], "t": out["t"], "feats": feats, "ts": timestamp}
+        self.frames_since_kf += 1
+        self._tracked_lms = out["tracked"]
+        self._feat_lm = out["feat_lm"]
+        self._add_frame_stats(out["vis32"], out["fnd32"])
+        with GLOBAL_TIMER.stage("track.kf_decision"):
+            need = self._need_new_keyframe(n_inliers, timestamp)
+        if need:
+            self._keyframe(feats, timestamp, n_inliers)
+        # the step's relative pose holds while the reference keyframe does
+        rel = (out["R_rel"], out["t_rel"]) if p["kf_row"] == self.last_kf_row else None
+        self._record_frame(timestamp, True, rel)
 
     def _extract(self, img) -> orb.Features:
         """ORB features of one image, with the keypoints undistorted under
@@ -501,8 +851,12 @@ class Tracker:
         kf_tight = self._n_kf_cache() > s.kmax - 4
         if not (lm_tight or kf_tight):
             return
-        # a campaign on the pre-compaction rows cannot be reconciled
+        # the frames in flight and the mapper's queue refer to the old rows:
+        # drain them; a campaign on the old rows cannot be reconciled
+        self._finalize_pending()
+        self._mapper_barrier()
         self._stop_gba()
+        s = self.map
         old_valid, old_parent = _np(s.kf_valid), _np(s.kf_parent)
         old_R, old_t = _np(s.kf_R).astype(np.float64), _np(s.kf_t).astype(np.float64)
         s2, kf_new_t, lm_new_t = atlas_ops.compact(s)
@@ -545,6 +899,12 @@ class Tracker:
             moved = torch.empty_like(self._tracked_lms)
             moved[lm_new] = self._tracked_lms
             self._tracked_lms = moved
+        if self._stat_vis is not None:
+            # the buffered statistics follow their landmarks
+            moved = [torch.zeros_like(b) for b in self._stats_reduce()]
+            for m, b in zip(moved, self._stats_reduce()):
+                m[lm_new] = b
+            self._stat_vis, self._stat_found = [moved[0]], [moved[1]]
         if self._feat_lm is not None:
             fl = self._feat_lm
             self._feat_lm = torch.where(
@@ -563,6 +923,10 @@ class Tracker:
                 pad = torch.zeros((s2.lmax - self._tracked_lms.shape[0],), dtype=torch.bool,
                                   device=self.device)
                 self._tracked_lms = torch.cat([self._tracked_lms, pad])
+            if new_lmax and self._stat_vis is not None:
+                vis, fnd = self._stats_reduce()
+                pad = torch.zeros((s2.lmax - vis.shape[0],), dtype=vis.dtype, device=self.device)
+                self._stat_vis, self._stat_found = [torch.cat([vis, pad])], [torch.cat([fnd, pad])]
         self.map = s2
         self._map_version += 1
         if self.loop_closer is not None:
@@ -572,6 +936,7 @@ class Tracker:
                 self.loop_closer.n_loops, self.loop_closer.n_merges = old.n_loops, old.n_merges
             self.loop_closer.pending = None
             self.loop_closer.rebuild_db(s2)
+        self._mapper_stale = self.async_mapper is not None
         verbose.print_mess(f"atlas compacted: n_kf={n_kf2} n_lm={n_lm2}",
                            verbose.VERBOSITY_NORMAL)
 
@@ -594,8 +959,15 @@ class Tracker:
         cfg = self.cfg
         s = self.map
         L = s.lmax
+        db = self.loop_closer.db
+        m = self.async_mapper
+        if m is not None and m._stream is not None:
+            # the mapper thread writes the database on its stream
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_stream(m._stream)
+            mapper_mod.hand_over(db, cur)
         bow = vocab_mod.sparse_bow(self.loop_closer.voc, feats.descriptors, feats.valid)
-        idx, _, ok = recognition.reloc_candidates(self.loop_closer.db, bow)
+        idx, _, ok = recognition.reloc_candidates(db, bow)
         inv_sig2 = self._inv_sigma2(feats.octave)
         for cand, okc in zip(_np(idx), _np(ok)):
             if not okc:
@@ -629,10 +1001,12 @@ class Tracker:
             self._tracked_lms = None
             cand_map = int(s.kf_map_id[cand])
             if cand_map != int(s.active_map):
+                self._mapper_barrier()
                 self.map = dataclasses.replace(
                     self.map, active_map=torch.tensor(cand_map, dtype=torch.int32,
                                                       device=self.device))
                 self._map_version += 1
+                self._mapper_stale = self.async_mapper is not None
             return True
         return False
 
@@ -649,7 +1023,10 @@ class Tracker:
         `System.cc:244,328`), an inertial sensor the [M, 7] rows (t, gx, gy,
         gz, ax, ay, az) measured since the previous frame as imu
         (GrabImuData, `Tracking.cc:1618`)."""
+        with GLOBAL_TIMER.stage("track.finalize"):
+            self._finalize_to_depth()
         with GLOBAL_TIMER.stage("track.adopt"):
+            self._adopt_commits()
             self._maybe_compact()
         if self.imu is not None:
             self.imu.ingest(None if imu is None else np.asarray(imu))
@@ -658,7 +1035,8 @@ class Tracker:
         # stores the active map and restarts in a fresh one; a gap over 1 s
         # drops a visual tracker's motion model
         if self.last is not None and self.state != NOT_INITIALIZED:
-            gap = timestamp - float(self.last["ts"])
+            prev_ts = self._pipeline[-1]["ts"] if self._pipeline else float(self.last["ts"])
+            gap = timestamp - prev_ts
             if gap < -1e-9 or (self.imu is not None and gap > 1.0):
                 self._timestamp_jump()
             elif gap > 1.0:
@@ -712,28 +1090,24 @@ class Tracker:
                 ok = self._initialize_with_depth(feats, ur, depth, timestamp)
         else:
             ok, rel = self._track_frame(feats, timestamp)
-        self._record_frame(timestamp, ok, rel)
-
-    def sync_mapping(self):
-        """Barrier before the caller reads or freezes the map. Mapping runs
-        on this thread, so nothing is queued and nothing is waited for."""
-
-    def settle(self):
-        """Barrier after the last frame: every frame's outcome is already
-        read on that frame (the JAX tracker at pipeline_depth=1), so there
-        is nothing in flight."""
+        if ok is not PENDING:
+            self._record_frame(timestamp, ok, rel)
 
     def _timestamp_jump(self):
         """Timestamp discontinuity: store the active map and continue in a
         fresh one (`Tracking.cc:1818-1855` -> CreateMapInAtlas, :2662)."""
+        self._finalize_pending()
         verbose.print_mess("Timestamp discontinuity: creating new map in Atlas",
                            verbose.VERBOSITY_NORMAL)
+        self._mapper_barrier()
         self.map = atlas_ops.create_map(self.map)
         self._restart_in_fresh_map()
 
     def _reset_active_map(self):
         """Discard the active map and restart (Tracking::ResetActiveMap,
         `Tracking.cc:3840`); the keyframe database forgets its keyframes."""
+        self._finalize_pending()
+        self._mapper_barrier()
         self._stop_gba()
         self.map = atlas_ops.reset_active_map(self.map)
         if self.loop_closer is not None:
@@ -742,7 +1116,9 @@ class Tracker:
         self._restart_in_fresh_map()
 
     def _restart_in_fresh_map(self):
+        self._pipeline.clear()  # frames in flight belong to the old map
         self._map_version += 1
+        self._mapper_stale = True
         self.state = NOT_INITIALIZED
         self.init_ref = None
         self.last = None
@@ -795,6 +1171,7 @@ class Tracker:
         self.last_kf_inliers = res.n_landmarks
         self.frames_since_kf = 0
         self._map_version += 1
+        self._mapper_stale = self.async_mapper is not None
         return True
 
     # ------------------------------------------------------------------
@@ -837,6 +1214,7 @@ class Tracker:
         self.last_kf_inliers = n_depth
         self.frames_since_kf = 0
         self._map_version += 1
+        self._mapper_stale = self.async_mapper is not None
         return True
 
     def _excited(self) -> bool:
@@ -858,12 +1236,22 @@ class Tracker:
     # per-frame tracking (TrackWithMotionModel + TrackLocalMap)
     # ------------------------------------------------------------------
     def _track_frame(self, feats, timestamp):
-        """Track one frame and consume its outcome. Returns (ok, rel) where
-        rel is the pose relative to the reference keyframe computed in the
-        step, or None when that keyframe changed."""
+        """Track one frame. Returns (ok, rel), rel being the pose relative to
+        the reference keyframe computed in the step (None when that
+        keyframe changed), or (PENDING, None) for the fused visual step,
+        whose outcome the software pipeline consumes and records."""
         cfg = self.cfg
-        s = self.map
         imu_active = self.imu is not None and self.imu.initialized
+        loc_mode = self.mapping_paused and self._frame_depth is not None
+        # the host-orchestrated paths (inertial, localization, lost) read
+        # the host state: consume the frames in flight first
+        if self._pipeline and (imu_active or loc_mode
+                               or self.state in (RECENTLY_LOST, LOST)):
+            cur = (self._frame_ur, self._frame_depth)
+            self._finalize_pending()
+            self._frame_ur, self._frame_depth = cur
+            imu_active = self.imu is not None and self.imu.initialized
+        s = self.map
         # a visual tracker that is lost goes straight to relocalization
         # (Tracking.cc:1981-2012); an initialized IMU keeps predicting
         if self.state in (RECENTLY_LOST, LOST) and not imu_active:
@@ -880,54 +1268,36 @@ class Tracker:
         # the IMU's prediction (PredictStateIMU, Tracking.cc:1738), else the
         # constant-velocity motion model (:2862-2877)
         pred = self._imu_prediction() if imu_active else None
-        if self.mapping_paused and self._frame_depth is not None:
+        if loc_mode:
             return self._track_frame_localization(feats, timestamp, s, pred), None
         if imu_active:
             return self._track_frame_inertial(feats, timestamp, s, pred), None
 
-        kf_row = self.last_kf_row
+        # the fused visual step; with a frame in flight its pose, velocity
+        # and tracked mask feed this step on the device
+        chain = self._pipeline[-1]["out"] if self._pipeline else None
         with GLOBAL_TIMER.stage("track.fused_step"):
             out = track_frame(
-                cfg, s, feats, kf_row, self.last["R"], self.last["t"],
+                cfg, s, feats, self.last_kf_row, self.last["R"], self.last["t"],
                 velocity=self.velocity, tracked=self._tracked_lms,
                 last_inliers=self.last_inliers, in_map=self._local_map_mask(s),
                 frame_ur=self._frame_ur, frame_depth=self._frame_depth,
-                th_depth_m=self.th_depth_m, feats_r=self._frame_feats_r)
-            n_inliers, vel_poisoned, n_close_tracked, n_close_untracked = out["scal"].tolist()
-        self.last_inliers = n_inliers
-        self._census = ((n_close_tracked, n_close_untracked) if self._frame_depth is not None
-                        else None)
-
-        if n_inliers < cfg.min_inliers:
-            self.lost_count += 1
-            self.state = RECENTLY_LOST if self.lost_count < 5 else LOST
-            # the prediction stands as the pose estimate
-            self.last = {"R": out["R_pred"], "t": out["t_pred"], "feats": feats,
-                         "ts": timestamp}
-            self.velocity = None
-            self._tracked_lms = None
-            ok = self._try_relocalize(feats)
-            if not ok:
-                self._new_map_if_lost()
-            return ok, None
-
-        self.lost_count = 0
-        self.state = OK
-        self.velocity = None if vel_poisoned else (out["Rv"], out["tv"])
-        self.last = {"R": out["R"], "t": out["t"], "feats": feats, "ts": timestamp}
-        self.frames_since_kf += 1
-        self._tracked_lms = out["tracked"]
-        self._feat_lm = out["feat_lm"]
-        self.map = dataclasses.replace(self.map, lm_visible=self.map.lm_visible + out["vis32"],
-                                       lm_found=self.map.lm_found + out["fnd32"])
-        with GLOBAL_TIMER.stage("track.kf_decision"):
-            need = self._need_new_keyframe(n_inliers, timestamp)
-        if need:
-            with GLOBAL_TIMER.stage("track.kf_insert_sync"):
-                self._insert_keyframe(feats, timestamp, n_inliers)
-        # the step's relative pose holds while the reference keyframe does
-        rel = (out["R_rel"], out["t_rel"]) if kf_row == self.last_kf_row else None
-        return True, rel
+                th_depth_m=self.th_depth_m, feats_r=self._frame_feats_r, chain=chain)
+        p = dict(out=out, feats=feats, ts=timestamp, R_pred=out["R_pred"], t_pred=out["t_pred"],
+                 ur=self._frame_ur, depth=self._frame_depth, kf_row=self.last_kf_row)
+        if self._depth() == 1:
+            self._finalize_one(p)
+            return PENDING, None
+        if self.device.type == "cuda":
+            # the readiness probe: the outcome scalars copied to pinned host
+            # memory behind the step, and an event after the copy
+            scal = out["scal"]
+            p["scal_host"] = torch.empty(scal.shape, dtype=scal.dtype, pin_memory=True)
+            p["scal_host"].copy_(scal, non_blocking=True)
+            p["ready"] = torch.cuda.Event()
+            p["ready"].record(torch.cuda.current_stream(self.device))
+        self._pipeline.append(p)
+        return PENDING, None
 
     # ------------------------------------------------------------------
     # inertial tracking (Tracker._track_frame's IMU branch)
@@ -1000,13 +1370,11 @@ class Tracker:
         self.frames_since_kf += 1
         self._tracked_lms = out["tracked"]
         self._feat_lm = out["feat_lm"]
-        self.map = dataclasses.replace(self.map, lm_visible=self.map.lm_visible + out["vis32"],
-                                       lm_found=self.map.lm_found + out["fnd32"])
+        self._add_frame_stats(out["vis32"], out["fnd32"])
         with GLOBAL_TIMER.stage("track.kf_decision"):
             need = self._need_new_keyframe(n_inliers, timestamp)
         if need:
-            with GLOBAL_TIMER.stage("track.kf_insert_sync"):
-                self._insert_keyframe(feats, timestamp, n_inliers)
+            self._keyframe(feats, timestamp, n_inliers)
         return True
 
     def _vi_pose_optimize(self, s, uv, ur, Xw, inv_sig2, valid, R0, t0):
@@ -1177,8 +1545,10 @@ class Tracker:
         """A persistent loss of a mature map starts a new map in the Atlas
         (Tracking::CreateMapInAtlas, `Tracking.cc:2014-2032`)."""
         if self.state == LOST and self._n_kf_cache() >= 10:
+            self._mapper_barrier()
             self.map = atlas_ops.create_map(self.map)
             self._map_version += 1
+            self._mapper_stale = self.async_mapper is not None
             self.state = NOT_INITIALIZED
             self.init_ref = None
             self.last_kf_row = -1
@@ -1191,11 +1561,11 @@ class Tracker:
                             lambda: float(self.map.kf_timestamp[self.last_kf_row]))
 
     def _need_new_keyframe(self, n_inliers: int, timestamp: float) -> bool:
-        """NeedNewKeyFrame (`Tracking.cc:3064-3187`) with synchronous
-        mapping (the mapper is always idle, so the JAX tracker's rules for a
-        busy mapper never apply): nothing while mapping is paused; before
-        the IMU is initialized an inertial sensor inserts every 0.25 s
-        (`:3066-3074`); c1a (max frames), c1b (min frames), c1c for a
+        """NeedNewKeyFrame (`Tracking.cc:3064-3187`): nothing while mapping
+        is paused; before the IMU is initialized an inertial sensor inserts
+        every 0.25 s after the last keyframe, queued ones included
+        (`:3066-3074`); c1a (max frames), c1b (min frames and the mapper
+        idle; synchronous mapping is always idle), c1c for a
         visual depth sensor (weak tracking, or fewer than 100 tracked and
         more than 70 untracked close points, `:3106-3128`), c2 (tracked
         ratio against the reference keyframe's map points observed >= 3
@@ -1205,12 +1575,19 @@ class Tracker:
         inliers at the last insertion), the cadence ceiling (at most
         kf_max_frames frames without a keyframe), and for an inertial
         sensor c3 (0.5 s since the last keyframe) and, mono-inertial, c4
-        (thin tracking: between min_inliers and 75 inliers). An inertial
-        keyframe is never refused."""
+        (thin tracking: between min_inliers and 75 inliers). With the mapper
+        busy, an inertial keyframe is still requested (the queue absorbs
+        it), a monocular one not; a stereo / RGB-D one is requested too and
+        its request waits for the mapper to be idle (`_request_keyframe`):
+        the JAX tracker asks only while fewer than 3 packages wait
+        (Tracking.cc:3196-3214), which on this port lets the mapper fall
+        behind and starves the map (ROADMAP Queue 3)."""
         cfg = self.cfg
         if self.mapping_paused:
             return False
-        last_kf_ts = self._last_kf_ts()
+        # the adopted commit's keyframe lags the queue: count the queued
+        # ones too, or a busy mapper is asked for a keyframe every frame
+        last_kf_ts = max(self._last_kf_ts(), self._last_kf_req_ts)
         if self.imu is not None and not self.imu.initialized:
             return timestamp - last_kf_ts >= 0.25
         n_kfs = self._n_kf_cache()
@@ -1218,6 +1595,8 @@ class Tracker:
         if (len(self.trajectory) < self._last_reloc_frame + cfg.kf_max_frames
                 and n_kfs > cfg.kf_max_frames):
             return False
+        idle = (not self.cfg.async_mapping or self.async_mapper is None
+                or self.async_mapper.idle())
         need_close = False
         depth_sensor = self.base_sensor != "mono"
         if depth_sensor and self._census is not None:
@@ -1239,7 +1618,7 @@ class Tracker:
         else:
             th_ratio = cfg.kf_tracked_ratio if n_kfs >= 2 else 0.4
         c1a = self.frames_since_kf >= cfg.kf_max_frames
-        c1b = self.frames_since_kf >= cfg.kf_min_frames
+        c1b = self.frames_since_kf >= cfg.kf_min_frames and idle
         c1c = (depth_sensor and self.imu is None
                and (n_inliers < 0.25 * ref_matches or need_close))
         c2 = ((n_inliers < th_ratio * ref_matches or need_close
@@ -1249,7 +1628,11 @@ class Tracker:
         c3 = self.imu is not None and timestamp - last_kf_ts >= 0.5
         c4 = (cfg.sensor == "mono-imu"
               and (cfg.min_inliers < n_inliers < 75 or self.state == RECENTLY_LOST))
-        return ((c1a or c1b or c1c) and c2) or c_ceiling or c3 or c4
+        if not (((c1a or c1b or c1c) and c2) or c_ceiling or c3 or c4):
+            return False
+        if idle or self.imu is not None:
+            return True
+        return self.base_sensor != "mono"
 
     # ------------------------------------------------------------------
     def _insert_keyframe(self, feats, timestamp, n_inliers: int):
@@ -1422,7 +1805,9 @@ class Tracker:
     def poses(self):
         """The trajectory as (timestamps, Tcw rotations [N,3,3],
         translations [N,3], ok [N]) in numpy, each frame composed against
-        the current keyframe poses (System::SaveTrajectoryEuRoC)."""
+        the current keyframe poses (System::SaveTrajectoryEuRoC), after
+        `sync_mapping`."""
+        self.sync_mapping()
         if not self.trajectory:
             return np.zeros(0), np.zeros((0, 3, 3)), np.zeros((0, 3)), np.zeros(0, bool)
         kf_R = _np(self.map.kf_R).astype(np.float64)

@@ -1,6 +1,5 @@
 """Visual-inertial parts of the tracker (port of
-orb_slam3_tpu/tracking/vi_tracker.py, without the background mapper's
-context).
+orb_slam3_tpu/tracking/vi_tracker.py).
 
 The IMU side of Tracking (`Tracking.cc`): per-frame IMU ingestion and the
 preintegration from the last frame and from the last keyframe
@@ -9,6 +8,11 @@ inertial initialization and its gauge transform (`InitializeIMU:1173`,
 `Map::ApplyScaledRotation:252`), the staged refinements (VIBA1, VIBA2, the
 monocular scale refinement), inertial keyframe culling and the
 visual-inertial local BA (`LocalInertialBA` through imu/vi_ba.py).
+
+Every mapping routine here (`run_vi_local_ba`, `try_initialize_imu`,
+`try_refine_imu`, `cull_keyframes_inertial`) takes a `tracker`: the
+Tracker on the synchronous path, or the background mapper's `MapperVICtx`,
+which holds the mapper's own map and a clone of the IMU state.
 
 The map stores camera poses Tcw; the body pose is Twb = Tcw^-1 Tcb with
 the fixed extrinsics Tbc (X_b = Rbc X_c + tbc, IMU::Calib). The raw
@@ -19,7 +23,9 @@ tracker's device and runs there.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -175,6 +181,25 @@ class ImuState:
         if self.first_kf_ts is None:
             self.first_kf_ts = timestamp
 
+    def clone_for_mapper(self) -> "ImuState":
+        """A copy for the background mapper's context that shares no mutable
+        buffer with this one: the mapper owns the keyframe intervals and the
+        init / refinement bookkeeping from here on, and the tracker's copies
+        are refreshed from its commits. The tensors are shared: every
+        update replaces them, none writes in place."""
+        c = ImuState(self.noise, np.eye(4, dtype=np.float32), self.device)
+        c.Rbc, c.tbc = self.Rbc, self.tbc
+        c.initialized = self.initialized
+        c.bg, c.ba, c.vel = self.bg, self.ba, self.vel
+        c.kf_buffers = copy.deepcopy(self.kf_buffers)
+        c.first_kf_ts = self.first_kf_ts
+        c.init_ts = self.init_ts
+        c.viba_stage = self.viba_stage
+        c.last_scale_refine_ts = self.last_scale_refine_ts
+        c.tinit = self.tinit
+        c.bad = self.bad
+        return c
+
     def trim_before(self, t0: float):
         """Drop the accumulated measurements at or before t0: the map's first
         keyframe is committed at the reference frame's timestamp, and what
@@ -224,6 +249,25 @@ class ImuState:
             return None
         return self._integrate(*self.kf_buffers[kf_row], self.bg if bg is None else bg,
                                self.ba if ba is None else ba)
+
+
+@dataclasses.dataclass
+class MapperVICtx:
+    """The stand-in for the Tracker that every inertial mapping routine
+    accepts: the background mapper's own map and IMU state. It has no
+    trajectory, and `last` is None, so `_apply_inertial_solution` moves
+    neither: the tracker rescales its relative frame poses and re-anchors
+    its pose when it adopts the commit (its `gauge_scale`)."""
+
+    map: object
+    imu: ImuState
+    cfg: object
+    scale_factors: object
+    debug_events: list
+    last: Optional[dict] = None
+    velocity: object = None
+    _vi_prior: object = None
+    last_kf_row: int = -1
 
 
 # ----------------------------------------------------------------------
@@ -292,15 +336,17 @@ def _apply_inertial_solution(tracker, out, chain, update_bias=True, event: str =
         tracker.last["R"] = tracker.last["R"] @ Ryw.T
         tracker.last["t"] = scale * tracker.last["t"]
     # the stored relative frame poses rescale with the gauge
-    # (Tracking::UpdateFrameIMU, Tracking.cc:3980-4010)
+    # (Tracking::UpdateFrameIMU, Tracking.cc:3980-4010); the mapper's
+    # context has none (the tracker rescales at adoption)
     s_host = float(host[0])
-    for f in tracker.trajectory:
+    for f in getattr(tracker, "trajectory", ()):
         f.t_rel = f.t_rel * s_host
     tracker.velocity = None
     tracker._vi_prior = None
 
 
-def try_initialize_imu(tracker, min_kfs: int = 10, min_time=None) -> bool:
+def try_initialize_imu(tracker, min_kfs: int = 10, min_time=None, n_kf_host=None,
+                       ts_now_host=None) -> bool:
     """Inertial-only MAP and the gauge transform once the chain holds
     `min_kfs` keyframes over `min_time` seconds (2 s monocular, 1 s with
     depth; LocalMapping.cc:1178-1189). Monocular warm-starts the MAP from
@@ -308,16 +354,19 @@ def try_initialize_imu(tracker, min_kfs: int = 10, min_time=None) -> bool:
     disagree, and keeps the linear gauge when the MAP runs off it. Then a
     joint visual-inertial BA with strong bias priors (FullInertialBA,
     LocalMapping.cc:1304-1310), alternated for monocular with two
-    scale-and-gravity re-solves. Returns True on success."""
+    scale-and-gravity re-solves. The background mapper passes its host
+    mirrors of n_kf and of the newest keyframe's timestamp (`n_kf_host`,
+    `ts_now_host`), so the gates read nothing from the device. Returns True
+    on success."""
     imu = tracker.imu
     s = tracker.map
     mono = tracker.cfg.sensor == "mono-imu"
     if min_time is None:
         min_time = 2.0 if mono else 1.0
-    n_kf = int(s.n_kf)
+    n_kf = int(s.n_kf) if n_kf_host is None else int(n_kf_host)
     if imu.initialized or n_kf < min_kfs or imu.first_kf_ts is None:
         return False
-    ts_now = float(s.kf_timestamp[n_kf - 1])
+    ts_now = float(s.kf_timestamp[n_kf - 1]) if ts_now_host is None else float(ts_now_host)
     if ts_now - imu.first_kf_ts < min_time:
         return False
     chain_out = _inertial_chain(tracker)
@@ -372,19 +421,20 @@ def _scale_gravity_only(tracker, chain, preints, R_wb, t_wb, iters: int = 30):
         fix_velocities=True, iters=iters)
 
 
-def try_refine_imu(tracker) -> bool:
+def try_refine_imu(tracker, n_kf_host=None, ts_now_host=None) -> bool:
     """The staged refinement after the init (LocalMapping::Run, LocalMapping.cc:
     200-242): VIBA1 re-runs the inertial MAP with relaxed priors (1, 1e5)
     after more than 5 s, VIBA2 with none after more than 15 s, each ending
     in a full inertial BA; monocular also refines scale and gravity every
     ~10 s until 75 s. A refinement scale outside (0.5, 2) is refused (the
-    map is already metric). Returns True when the map was transformed."""
+    map is already metric). `n_kf_host` / `ts_now_host` as for
+    try_initialize_imu. Returns True when the map was transformed."""
     imu = tracker.imu
     s = tracker.map
     if not imu.initialized or imu.init_ts is None:
         return False
-    n_kf = int(s.n_kf)
-    ts_now = float(s.kf_timestamp[n_kf - 1])
+    n_kf = int(s.n_kf) if n_kf_host is None else int(n_kf_host)
+    ts_now = float(s.kf_timestamp[n_kf - 1]) if ts_now_host is None else float(ts_now_host)
     tinit = ts_now - imu.init_ts
     stage_prior = None
     if imu.viba_stage == 0 and tinit > 5.0:

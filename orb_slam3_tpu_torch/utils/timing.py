@@ -10,6 +10,7 @@ p50 / p95. The stage names are the JAX package's (`track.*`,
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from collections import defaultdict
 
@@ -18,11 +19,21 @@ import torch
 
 
 class StageTimer:
+    """Samples from every thread (the tracker's and the background
+    mapper's) land under their stage names; appending holds a lock."""
+
     def __init__(self):
         self.samples = defaultdict(list)
+        self._lock = threading.Lock()
 
     def reset(self):
-        self.samples.clear()
+        with self._lock:
+            self.samples.clear()
+
+    def _add(self, name: str, t0: float):
+        ms = (time.perf_counter() - t0) * 1000.0
+        with self._lock:
+            self.samples[name].append(ms)
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -34,23 +45,27 @@ class StageTimer:
         try:
             yield
         finally:
-            self.samples[name].append((time.perf_counter() - t0) * 1000.0)
+            self._add(name, t0)
 
     @contextlib.contextmanager
     def stage_sync(self, name: str, device=None):
-        """Like `stage`, but waits for `device` (a CUDA device; nothing to
-        wait for on the CPU) with torch.cuda.synchronize before closing the
-        bracket, so the stage's device time is inside it."""
+        """Like `stage`, but waits for the calling thread's current CUDA
+        stream on `device` (nothing to wait for on the CPU) before closing
+        the bracket, so the stage's device time is inside it. Only that
+        stream: a tracking stage does not wait for the mapper's queued BA on
+        the mapper's stream, nor a mapper stage for the tracker."""
         t0 = time.perf_counter()
         try:
             yield
         finally:
             if device is not None and torch.device(device).type == "cuda":
-                torch.cuda.synchronize(device)
-            self.samples[name].append((time.perf_counter() - t0) * 1000.0)
+                torch.cuda.current_stream(device).synchronize()
+            self._add(name, t0)
 
     def summary(self) -> dict:
         """Mean / std plus p50 / p95 per stage."""
+        with self._lock:
+            samples = {k: list(v) for k, v in self.samples.items()}
         return {
             k: {
                 "mean_ms": float(np.mean(v)),
@@ -59,7 +74,7 @@ class StageTimer:
                 "p95_ms": float(np.percentile(v, 95)),
                 "n": len(v),
             }
-            for k, v in self.samples.items()
+            for k, v in samples.items()
         }
 
     def print_stats(self, path: str | None = None):

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
 plain-torch paths around them (the depth frontend, KB8, the inertial
-solvers) on the card against the CPU, on a card.
+solvers) on the card against the CPU, on a card; the background mapper's
+stream (K1 / K2 on a side stream, the stage timer's stream-local sync, a
+short session mapping on its own stream).
 
 Imports neither jax nor the JAX package, so it runs on a machine with
 PyTorch and a CUDA card alone:
@@ -900,3 +902,100 @@ def test_k1_and_k2_at_the_inertial_tracking_site(cuda):
     assert int(ok_c.sum()) > 400
     np.testing.assert_allclose(pose_g[0].cpu().numpy(), pose_c[0].numpy(), atol=1e-5)
     np.testing.assert_allclose(pose_g[1].cpu().numpy(), pose_c[1].numpy(), atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the background mapper's stream
+# ---------------------------------------------------------------------------
+
+def test_k1_and_k2_on_a_side_stream_give_the_default_streams_bits(cuda):
+    """The wrappers launch on PyTorch's current stream: inside
+    torch.cuda.stream(side), where the mapper thread runs, K1 and K2 give
+    the bits they give on the default stream, and the launches land on the
+    side stream (the default stream is held by nothing)."""
+    args1 = [a.to(cuda) for a in _k1_case(5, 8192, 1000)]
+    kw1 = dict(max_dist=100, ratio=0.8, level_lo=-1, level_hi=1)
+    args2, kw2 = _k2_case(1, 8192, True, seed=21)
+    args2 = [a.to(cuda) for a in args2]
+    kw2 = {k: v.to(cuda) for k, v in kw2.items()}
+    ref1 = [x.cpu() for x in mk.search_by_projection_kernel(*args1, **kw1)]
+    ref2 = [x.cpu() for x in pk.pose_ba(*args2, **kw2)]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got1 = mk.search_by_projection_kernel(*args1, **kw1)
+        got2 = pk.pose_ba(*args2, **kw2)
+        done = torch.cuda.Event()
+        done.record(side)
+    done.synchronize()
+    for a, b in zip([x.cpu() for x in got1] + [x.cpu() for x in got2], ref1 + ref2):
+        assert torch.equal(a, b)
+
+
+def test_stage_sync_waits_for_its_own_stream_only(cuda):
+    """StageTimer.stage_sync waits for the calling thread's current stream:
+    a stage on the default stream does not wait for a spin kernel queued
+    on another stream (torch.cuda.synchronize would)."""
+    from orb_slam3_tpu_torch.utils.timing import StageTimer
+
+    timer = StageTimer()
+    x = torch.ones(1000, device=cuda)
+    (x * 2).sum().item()  # warm-up
+    side = torch.cuda.Stream(cuda)
+    spin = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    with torch.cuda.stream(side):
+        spin[0].record(side)
+        torch.cuda._sleep(1_000_000_000)  # ~0.5 s at the H100's boost clock
+        spin[1].record(side)
+    with timer.stage_sync("own", cuda):
+        y = x * 2
+    own_ms = timer.samples["own"][0]
+    with timer.stage("all"):
+        torch.cuda.synchronize(cuda)
+    spin_ms = spin[0].elapsed_time(spin[1])
+    assert spin_ms > 200.0 and own_ms < 0.25 * spin_ms, (own_ms, spin_ms)
+    assert timer.samples["all"][0] > own_ms
+    assert float(y.sum()) == 2000.0
+
+
+def test_async_session_on_the_card_maps_on_its_own_stream(cuda):
+    """A 10-frame monocular session at 256x192 on the free-running mapper:
+    it maps on the mapper thread's own stream (K1's fuse launches come from
+    the "mapper" thread), tracks, and shutdown() returns within its
+    timeout."""
+    import time
+
+    from orb_slam3_tpu_torch import entry
+    from orb_slam3_tpu_torch.atlas import invariants
+    from orb_slam3_tpu_torch.frontend import orb
+    from orb_slam3_tpu_torch.mapping import fuse
+
+    small = dict(img_wh=(256, 192), K=(200.0, 200.0, 128.0, 96.0))
+    frames = entry.plane_sequence(10, **small)[0]
+    cfg = entry.tracker_config(cuda, orb=orb.OrbConfig(300, 4), kmax=16, lmax=1024,
+                               local_window=4, **small)
+    streams = set()
+    orig = fuse.fuse_into_keyframe
+
+    def fuse_rec(*a, **kw):
+        streams.add(torch.cuda.current_stream(cuda).cuda_stream)
+        return orig(*a, **kw)
+
+    fuse.fuse_into_keyframe = fuse_rec
+    try:
+        mapper_k1 = mk.launches_by_thread.get("mapper", 0)
+        system = entry.slam(frames, cfg)
+    finally:
+        fuse.fuse_into_keyframe = orig
+    tr = system.tracker
+    m = tr.async_mapper
+    assert m is not None and m._stream is not None and m.n_processed >= 1
+    assert streams == {m._stream.cuda_stream}
+    assert m._stream.cuda_stream != torch.cuda.current_stream(cuda).cuda_stream
+    assert mk.launches_by_thread.get("mapper", 0) > mapper_k1
+    ts, R, t, ok = tr.poses()
+    assert ok[-4:].all() and invariants.check_all(tr.map) == []
+    thread = m._thread
+    t0 = time.perf_counter()
+    system.shutdown()
+    assert time.perf_counter() - t0 < 30.0 and not thread.is_alive()

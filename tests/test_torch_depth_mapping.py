@@ -69,7 +69,8 @@ def rgbd_frames(n, seed=1):
 def depth_config(sensor="rgbd", bf=BF, th_depth=20.0):
     return ttrk.TrackerConfig(K=convert.camera(K_NP, "cpu"), img_wh=WH,
                               orb=convert.orb_config(OCFG), kmax=8, lmax=1024, local_window=4,
-                              sensor=sensor, bf=bf, th_depth=th_depth)
+                              sensor=sensor, bf=bf, th_depth=th_depth, async_mapping=False,
+                              pipeline_depth=1)
 
 
 def jax_depth_config(tcfg):

@@ -235,7 +235,8 @@ def stereo_session():
     K = tuple(K_NP[:4])
     frames = [entry.render_stereo(planes, K, WH, R[i], t[i], 0.12) for i in range(10)]
     cfg = entry.tracker_config("cpu", img_wh=WH, K=K, orb=torb.OrbConfig(300, 4), kmax=8,
-                               lmax=1024, local_window=4, sensor="stereo", bf=200.0 * 0.12)
+                               lmax=1024, local_window=4, sensor="stereo", bf=200.0 * 0.12,
+                               async_mapping=False, pipeline_depth=1)
     calls = {"stereo": 0, "mono": 0}
     orig_s, orig_m = ttrack.pose_optimize_stereo, ttrack.pose_optimize
 
@@ -299,7 +300,8 @@ def test_tracker_follows_the_bootstrap():
     K = tuple(K_NP[:4])
     frames, _, _, _ = entry.plane_sequence(12, img_wh=WH, K=K)
     cfg = entry.tracker_config("cpu", img_wh=WH, K=K, orb=torb.OrbConfig(300, 4), kmax=8,
-                               lmax=1024, local_window=4, kf_min_frames=6, kf_max_frames=6)
+                               lmax=1024, local_window=4, kf_min_frames=6, kf_max_frames=6,
+                               async_mapping=False, pipeline_depth=1)
     boot = entry.bootstrap(frames, cfg, n_track=8)
     assert boot["init"].success and len(boot["poses"]) >= 3
     tr = ttrk.Tracker(cfg)

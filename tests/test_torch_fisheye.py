@@ -253,7 +253,8 @@ def system_vs_jax(tmp_path, n, K8, wh, orb_cfg, kmax, lmax, window):
     cfg = sys_.tracker.cfg
     assert cfg.stereo_fisheye and cfg.kind == tcam.KB8 and abs(cfg.bf - K8[0] * BASE) < 1e-3
     sys_.tracker = ttrk.Tracker(dataclasses.replace(cfg, kmax=kmax, lmax=lmax,
-                                                    local_window=window), device="cpu")
+                                                    local_window=window, async_mapping=False,
+                                                    pipeline_depth=1), device="cpu")
     jcfg = jsettings.to_tracker_config(jsettings.load_settings(str(path), "stereo"), kmax=kmax,
                                        lmax=lmax, local_window=window, async_mapping=False,
                                        pipeline_depth=1)
@@ -305,7 +306,8 @@ def test_fisheye_system_session_tracks_on_the_port(tmp_path):
     frames, R_gt, t_gt = kb8_frames(3, K8_SMALL, (256, 192))
     sys_ = tsys.System(str(path), sensor="stereo", device="cpu")
     sys_.tracker = ttrk.Tracker(dataclasses.replace(sys_.tracker.cfg, kmax=8, lmax=1024,
-                                                    local_window=4), device="cpu")
+                                                    local_window=4, async_mapping=False,
+                                                    pipeline_depth=1), device="cpu")
     rec = []
     for i, (l, r) in enumerate(frames):
         sys_.track_stereo(l, r, 0.05 * i)
@@ -427,7 +429,8 @@ def kb8_session():
         K=K8_SMALL, kind=tcam.KB8, img_wh=(256, 192), sensor="stereo",
         orb=torb.OrbConfig(300, 4), kmax=8, lmax=1024, local_window=4, th_depth=20.0,
         stereo_fisheye=True, K_right=K8_SMALL, R_rl=np.eye(3, dtype=np.float32),
-        t_rl=np.array([-BASE, 0.0, 0.0], np.float32), bf=float(K8_SMALL[0]) * BASE)
+        t_rl=np.array([-BASE, 0.0, 0.0], np.float32), bf=float(K8_SMALL[0]) * BASE,
+        async_mapping=False, pipeline_depth=1)
     tr = ttrk.Tracker(cfg, device="cpu")
     rec = []
     orig = tpipe.run_pre_stage

@@ -248,7 +248,7 @@ def small_config(kf_max_frames=5, kmax=8):
     return ttrk.TrackerConfig(K=convert.camera(K_NP, "cpu"), img_wh=WH,
                               orb=torb.OrbConfig(300, 4), kmax=kmax, lmax=1024, local_window=4,
                               sensor="rgbd", bf=200.0 * 0.1, th_depth=20.0,
-                              kf_max_frames=kf_max_frames)
+                              kf_max_frames=kf_max_frames, async_mapping=False, pipeline_depth=1)
 
 
 def plane_frames(seed, idx, n):
@@ -435,7 +435,8 @@ WH_REF = (512, 384)
 def ref_config(kmax, kf_max_frames):
     return entry.tracker_config("cpu", img_wh=WH_REF, K=K_REF, sensor="rgbd", bf=35.0,
                                 th_depth=20.0, orb=torb.OrbConfig(600, 4), kmax=kmax,
-                                lmax=8192, local_window=6, kf_max_frames=kf_max_frames)
+                                lmax=8192, local_window=6, kf_max_frames=kf_max_frames,
+                                async_mapping=False, pipeline_depth=1)
 
 
 def _kf_ate(s, R_gt, t_gt, dt=0.05):

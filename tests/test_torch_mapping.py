@@ -83,12 +83,14 @@ def jax_features(n_frames):
     return imgs, jf, tf, (R_gt, t_gt)
 
 
-def port_tracker(tf, kmax=8, lmax=1024):
+def port_tracker(tf, kmax=8, lmax=1024, async_mapping=False, pipeline_depth=1, **fields):
     """A CPU port Tracker whose extraction hands out `tf` in order (the JAX
-    features of each frame)."""
+    features of each frame); the synchronous schedule unless told
+    otherwise."""
     cfg = ttrk.TrackerConfig(K=convert.camera(K_NP, "cpu"), img_wh=WH,
                              orb=convert.orb_config(OCFG), kmax=kmax, lmax=lmax,
-                             local_window=4)
+                             local_window=4, async_mapping=async_mapping,
+                             pipeline_depth=pipeline_depth, **fields)
     t = ttrk.Tracker(cfg)
     it = iter(tf)
     t._extract = lambda img: next(it)

@@ -8,8 +8,12 @@
   train_vocabulary's camera, the room scene's ray caster) default to CUDA
   and raise where there is none.
 - The place-recognition and loop-closing subpackages (place/, graphopt/),
-  the global BA and the inertial modules (imu/, tracking/vi_pose_opt.py,
-  tracking/vi_tracker.py) import neither jax nor the JAX package.
+  the global BA, the inertial modules (imu/, tracking/vi_pose_opt.py,
+  tracking/vi_tracker.py) and the background mapper (runtime/) import
+  neither jax nor the JAX package.
+- TrackerConfig, Tracker and System default to the JAX package's schedule:
+  the background mapper on a free-running thread, pipeline depth 6; the
+  mapper takes the tracker's device, CUDA by default.
 - Tracker and System accept the three inertial sensors and default to
   CUDA with them too.
 - Settings files are read without PyYAML or OpenCV.
@@ -177,7 +181,8 @@ def test_entry_points_import_no_jax():
                 "place/recognition.py", "graphopt/sim3_solver.py", "graphopt/essential.py",
                 "graphopt/loop_closer.py", "mapping/global_ba.py", "imu/preintegration.py",
                 "imu/factors.py", "imu/initialization.py", "imu/vi_ba.py",
-                "tracking/vi_pose_opt.py", "tracking/vi_tracker.py", "convert.py"):
+                "tracking/vi_pose_opt.py", "tracking/vi_tracker.py", "convert.py",
+                "runtime/__init__.py", "runtime/mapper.py"):
         roots = set(_imported_roots(PKG / rel))
         assert not roots & set(FORBIDDEN), (rel, roots & set(FORBIDDEN))
 
@@ -238,3 +243,29 @@ def test_imu_measurements_on_a_visual_session_raise():
     s = tsystem.System(config=tentry.tracker_config("cpu", img_wh=(64, 48), kmax=4, lmax=32))
     with pytest.raises(ValueError, match="IMU"):
         s.track_monocular(np.zeros((48, 64), np.float32), 0.0, imu=np.zeros((2, 7)))
+
+
+def test_runtime_imports_no_jax_and_the_defaults_map_in_the_background(monkeypatch):
+    from orb_slam3_tpu_torch.api import system as tsystem
+    from orb_slam3_tpu_torch.runtime import mapper as tmapper
+
+    files = sorted((PKG / "runtime").glob("*.py"))
+    assert {f.name for f in files} == {"__init__.py", "mapper.py"}
+    for f in files:
+        assert not set(_imported_roots(f)) & set(FORBIDDEN), f
+    cfg = ttracker.TrackerConfig()
+    assert (cfg.async_mapping, cfg.deterministic_mapping, cfg.pipeline_depth) == (True, False, 6)
+    K = np.asarray([40.0, 40.0, 32.0, 24.0, 0, 0, 0, 0], np.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsystem.System(config=ttracker.TrackerConfig(K=K, img_wh=(64, 48), kmax=4, lmax=32))
+    s = tsystem.System(config=tentry.tracker_config("cpu", img_wh=(64, 48), kmax=4, lmax=32))
+    tr = s.tracker
+    assert tr.cfg.async_mapping and not tr.cfg.deterministic_mapping
+    assert tr.cfg.pipeline_depth == 6 and tr._depth() == 6
+    tr._ensure_mapper()
+    m = tr.async_mapper
+    assert isinstance(m, tmapper.AsyncMapper) and not m.inline and m.device.type == "cpu"
+    assert m._thread.is_alive() and m._thread.daemon and m._stream is None
+    s.shutdown()
+    assert tr.async_mapper is None and not m._thread.is_alive()

@@ -90,7 +90,7 @@ def session():
     kmax 8 and lmax 512, with poses() recorded around each compaction."""
     frames, R_gt, t_gt, _ = entry.plane_sequence(20, **SMALL)
     cfg = entry.tracker_config("cpu", orb=torb.OrbConfig(300, 4), kmax=8, lmax=512,
-                               local_window=4, **SMALL)
+                               local_window=4, async_mapping=False, pipeline_depth=1, **SMALL)
     system = tsys.System(config=cfg)
     tr = system.tracker
     calls = {"compact": 0, "grow": []}

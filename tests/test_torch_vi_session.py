@@ -183,7 +183,7 @@ def mono_session():
     frames = [entry.render_planes(planes, SMALL_K, SMALL_WH, R[i], t[i]) for i in range(n)]
     cfg = entry.tracker_config("cpu", img_wh=SMALL_WH, K=SMALL_K, sensor="mono-imu",
                                orb=torb.OrbConfig(300, 4), kmax=32, lmax=1024, local_window=6,
-                               kf_max_frames=3)
+                               kf_max_frames=3, async_mapping=False, pipeline_depth=1)
     system = entry.slam(frames, cfg, imu=imu, timestamps=[(i + 1) / 10.0 for i in range(n)])
     return dict(system=system, R=R, t=t)
 
@@ -224,7 +224,8 @@ def test_rgbd_inertial_waits_for_excitation_then_tracks():
     frames = [entry.render_with_depth(planes, SMALL_K, SMALL_WH, R[i], t[i]) for i in range(n)]
     cfg = entry.tracker_config("cpu", img_wh=SMALL_WH, K=SMALL_K, sensor="rgbd-imu",
                                bf=350.0 * 0.12, orb=torb.OrbConfig(300, 4), kmax=64,
-                               lmax=1024, local_window=6, kf_max_frames=3)
+                               lmax=1024, local_window=6, kf_max_frames=3, async_mapping=False,
+                               pipeline_depth=1)
     system = tsys.System(config=cfg)
     states = []
     for i, (img, depth) in enumerate(frames):
@@ -308,7 +309,8 @@ def test_depth_inertial_sessions_meet_the_jax_tests_gates(sensor, seed):
     frames = [render(planes, FULL_K, FULL_WH, R[i], t[i], *extra) for i in range(n)]
     cfg = entry.tracker_config("cpu", img_wh=FULL_WH, K=FULL_K, sensor=sensor,
                                bf=350.0 * baseline, th_depth=20.0, orb=torb.OrbConfig(600, 4),
-                               kmax=64, lmax=8192, local_window=6, kf_max_frames=3)
+                               kmax=64, lmax=8192, local_window=6, kf_max_frames=3,
+                               async_mapping=False, pipeline_depth=1)
     states = []
     system = tsys.System(config=cfg)
     for i, (a, b) in enumerate(frames):
