@@ -176,7 +176,34 @@ Phases; any failure exits non-zero without the final `ok` line:
      mapper's per-package stages, its packages, BAs, skipped BAs and
      longest queue, the frames in flight, and the device busy share over 5
      frames tracked while a package is mapped.
-Phases 6-13 print one JSON line with each kernel's bound and launches by
+ 14. persistence and I/O at full width, each path with the launch counters
+     zeroed just before it: phase 8's 40 PlaneScene frames written as a
+     EuRoC ASL folder with the port's PNG codec and run through the EuRoC
+     driver (orb_slam3_tpu_torch.drivers.run_euroc: datasets ->
+     FrameLoader -> System(settings_path) on the free-running schedule ->
+     the trajectory and save_atlas) with tests/test_slam_mono.py's gates;
+     the frames per second, the loader's decoder and save_atlas's bytes and
+     ms; then tests/test_loop_reloc.py's resume at full width (RGB-D, th_depth
+     20, bf 450 x 0.1, kf_max_frames 2, a vocabulary trained in the run):
+     session 1 maps 20 frames (>= 8 keyframes) and saves its Atlas,
+     System(atlas_path=...) loads it (equal to the saved map, a database of
+     >= 8 keyframes) and tracks the same region until its map merges into
+     the loaded one (one map id at the end), while the live viewer serves
+     every endpoint to a client thread (PNG signatures, the stats, the
+     localization command); save_map_3d and the PLY (one vertex per landmark
+     and keyframe); K1 and K2's launches on both paths.
+ 15. the parallel layers and batched extraction: the landmark-sharded
+     global BA over an NCCL world of one on the resumed map against
+     GlobalBARunner (poses within 5e-3, points within 2e-2; buckets of 1
+     against global_ba bit for bit, printed); the fleet step at B = 8 at
+     full width (track-full's scene from 8 perturbed start poses, L = 2048
+     each) with the launch counters zeroed just before it: K1 launched 8
+     times and K2 once, each session's (R, t, n) equal to its own step (R
+     1e-5, t 1e-4, n equal), K2 at B = 8 against its plain version; the
+     fleet step's ms against 8 sequential steps, K2's ms, device ms, plain
+     ms and bound at B = 8; extract_batched against extract at full width
+     (every valid keypoint equal) with the ms and CUDA kernels of both.
+Phases 6-15 print one JSON line with each kernel's bound and launches by
 path and call site; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -3448,6 +3475,493 @@ def phase_async(dev, gpu):
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+RESUME_FRAMES = 20  # session 1 of tests/test_loop_reloc.py's resume test
+
+
+def _fetch(url, timeout=30):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+class ViewerClient:
+    """Fetches every endpoint of a live viewer in a loop, from a thread of
+    its own, until stopped: what a browser on the page does."""
+
+    ENDPOINTS = ("/", "/stats.json", "/map.png", "/frame.png", "/map3d")
+
+    def __init__(self, port):
+        import threading
+
+        self.base = f"http://127.0.0.1:{port}"
+        self.ok = {e: 0 for e in self.ENDPOINTS}
+        self.errors = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="viewer-client", daemon=True)
+
+    def _run(self):
+        from orb_slam3_tpu_torch.utils import png
+
+        while not self._stop.is_set():
+            for e in self.ENDPOINTS:
+                try:
+                    code, body = _fetch(self.base + e)
+                    good = code == 200 and (body[:8] == png.SIGNATURE if e.endswith(".png")
+                                            else len(body) > 0)
+                    if good:
+                        self.ok[e] += 1
+                    else:
+                        self.errors.append(f"{e}: {code} {body[:80]!r}")
+                except Exception as ex:  # noqa: BLE001 -- recorded, gated by the phase
+                    self.errors.append(f"{e}: {ex!r}")
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+
+def resume_frames():
+    """tests/test_loop_reloc.py::test_atlas_resume_relocalizes_into_loaded_map
+    at full width: PlaneScene seed 7 along the orbit with advance 0.05,
+    ray-cast on the card; the vocabulary's held-out views are the first 3
+    orbit views."""
+    from orb_slam3_tpu_torch import entry
+
+    scene = entry.QuadScene(entry.FULL_K, entry.FULL_WH, entry.plane_quads(entry.plane_scene(7)))
+    R, t = entry.orbit_trajectory(40, advance=0.05)
+    frames = {i: scene.render_with_depth(R[i], t[i])
+              for i in list(range(RESUME_FRAMES)) + list(range(2, 40, 2))}
+    R3, t3 = entry.orbit_trajectory(3)
+    return frames, [scene.render(R3[i], t3[i]) for i in range(3)]
+
+
+def phase_io(dev, gpu):
+    """Phase 14: persistence and I/O at full width. The EuRoC driver over a
+    folder written with the port's PNG codec (tests/test_slam_mono.py's
+    gates), a saved Atlas resumed by System(atlas_path=...) with the live
+    viewer serving from another thread (tests/test_loop_reloc.py's resume
+    gates), save_map_3d and the PLY; K1 and K2's launches on both paths
+    (the driver's session and the resumed one; session 1 of the resume is
+    set-up), K1's at the fuse and the merge, and the mapper thread's."""
+    import dataclasses
+    import json
+    import os
+    import pathlib
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from orb_slam3_tpu_torch import drivers, entry
+    from orb_slam3_tpu_torch.api import datasets, evaluate, viz
+    from orb_slam3_tpu_torch.api.system import System
+    from orb_slam3_tpu_torch.atlas import invariants
+    from orb_slam3_tpu_torch.frontend import match_kernel as mk
+    from orb_slam3_tpu_torch.mapping import fuse
+    from orb_slam3_tpu_torch.tracking import pose_kernel as pk
+    from orb_slam3_tpu_torch.tracking import tracker
+    from orb_slam3_tpu_torch.utils import png
+    from orb_slam3_tpu_torch.utils.frameloader import FrameLoader
+    from orb_slam3_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    # K1 by call site, on whichever thread calls it (the free-running
+    # sessions fuse and merge on the mapper thread); each path's counts are
+    # the differences over that path's run alone
+    o = dict(fuse=fuse.fuse_into_keyframe, merge=fuse.merge_duplicates_at_keyframe)
+    sites, lock = {"K1 fuse": 0, "K1 merge": 0}, threading.Lock()
+
+    def counted(fn, key):
+        def call(*a, **kw):
+            me = threading.current_thread().name
+            n0 = mk.launches_by_thread.get(me, 0)
+            try:
+                return fn(*a, **kw)
+            finally:
+                with lock:
+                    sites[key] += mk.launches_by_thread.get(me, 0) - n0
+        return call
+
+    def snapshot():
+        with lock:
+            return {**sites, "K1 mapper thread": mk.launches_by_thread.get("mapper", 0)}
+
+    def since(snap):
+        now = snapshot()
+        return {k: now[k] - snap[k] for k in snap}
+
+    failed, out = [], {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    fuse.fuse_into_keyframe = counted(o["fuse"], "K1 fuse")
+    fuse.merge_duplicates_at_keyframe = counted(o["merge"], "K1 merge")
+    try:
+        # 1. the EuRoC driver over a folder of PNG files
+        frames, R_gt, t_gt, _ = entry.plane_sequence(SLAM_FRAMES)
+        root = f"{tmp}/euroc"
+        t0 = time.perf_counter()
+        entry.write_euroc_folder(root, frames)
+        write_s = time.perf_counter() - t0
+        n_bytes = sum(p.stat().st_size for p in pathlib.Path(root).rglob("*.png"))
+        paths = [f.img_path for f in datasets.load_euroc(root)]
+        t0 = time.perf_counter()
+        decoded = sum(1 for _ in FrameLoader(paths))
+        decode_ms = (time.perf_counter() - t0) * 1e3 / max(decoded, 1)
+        yaml = f"{tmp}/euroc.yaml"
+        with open(yaml, "w") as f:
+            f.write(entry.pinhole_settings(entry.FULL_K, entry.FULL_WH, 1000, 8))
+        GLOBAL_TIMER.reset()
+        snap = snapshot()
+        mk.launches = pk.launches = 0
+        res = drivers.run_euroc(root, yaml, "mono", out=f"{tmp}/traj.txt",
+                                atlas_out=f"{tmp}/euroc_atlas.npz", device=dev,
+                                log=lambda *a: None)
+        torch.cuda.synchronize()  # the driver's session is shut down: its mapper too
+        launches_drv = {"K1": mk.launches, "K2": pk.launches, **since(snap)}
+        drv_frames = list(GLOBAL_TIMER.samples["frame_total"])
+        tr = res["system"].tracker
+        ts, R, t, ok = tr.poses()
+        s = tr.map
+        est = evaluate.camera_centers(R[ok], t[ok])
+        gt = evaluate.camera_centers(R_gt[ok], t_gt[ok])
+        rmse, _, ate_scale = evaluate.ate_rmse(ts[ok], est, ts[ok], gt, with_scale=True)
+        n_kf, n_lm = int(s.n_kf), int(s.lm_valid.sum())
+        lm = s.kf_feat_lm.cpu().numpy()
+        bound = lm[lm >= 0]
+        on_valid = float(s.lm_valid.cpu().numpy()[bound].mean()) if bound.size else 0.0
+        viol = invariants.check_all(s)
+        print(f"[io] {gpu}: wrote {SLAM_FRAMES} frames as a EuRoC folder ({n_bytes} bytes of "
+              f"PNG) in {write_s:.2f} s; the loader alone {decode_ms:.2f} ms a frame; the "
+              f"driver (decoder: {FrameLoader.decoder}): "
+              f"{res['fps']:.2f} fps over {res['frames']} frames ({res['seconds']:.2f} s), "
+              f"launches {launches_drv}; save_atlas {res['save_atlas_bytes']} bytes in "
+              f"{res['save_atlas_ms']:.1f} ms")
+        print(f"[io] driver frames (host ms, enqueue; the last one settles): median "
+              f"{statistics.median(drv_frames):.1f}, first five "
+              f"{[round(x, 1) for x in drv_frames[:5]]}, largest five "
+              f"{sorted(round(x, 1) for x in drv_frames)[-5:]}")
+        print(f"[io] driver session: state {tr.state}, tracked {int(ok.sum())}/{len(ok)}, "
+              f"scale-fitted ATE {rmse:.5f} (scale {ate_scale:.4f}), n_kf {n_kf}, landmarks "
+              f"{n_lm}, bindings on valid {100 * on_valid:.2f}%, violations {len(viol)}")
+        for cond, msg in ((tr.state == tracker.OK, "driver: state not OK at the end"),
+                          (ok.sum() >= 0.7 * len(ok), f"driver: {int(ok.sum())} tracked"),
+                          (rmse < 0.35, f"driver: ATE {rmse:.4f}"),
+                          (n_kf >= 3, f"driver: n_kf {n_kf}"),
+                          (n_lm > 150, f"driver: {n_lm} landmarks"),
+                          (on_valid >= 0.95, f"driver: bindings on valid {on_valid:.3f}"),
+                          (not viol, f"driver: invariants {viol[:3]}"),
+                          (launches_drv["K1"] >= SLAM_FRAMES // 2 and launches_drv["K2"] >= 2
+                           and launches_drv["K1 fuse"] >= 1,
+                           f"driver: launches {launches_drv}")):
+            if not cond:
+                print(f"[io] GATE FAILED: {msg}")
+                failed.append(msg)
+        out["driver"] = dict(fps=res["fps"], seconds=res["seconds"], frames=res["frames"],
+                             decoder=FrameLoader.decoder, png_bytes=n_bytes, write_s=write_s,
+                             decode_ms=decode_ms, frame_ms=drv_frames,
+                             save_atlas_bytes=res["save_atlas_bytes"],
+                             save_atlas_ms=res["save_atlas_ms"], launches=launches_drv,
+                             tracked=int(ok.sum()), ate=rmse, n_kf=n_kf, landmarks=n_lm)
+
+        # 2. the resume, with the viewer serving from another thread
+        t0 = time.perf_counter()
+        fr, views = resume_frames()
+        fields = dict(sensor="rgbd", bf=450.0 * 0.1, th_depth=20.0, kf_max_frames=2)
+        cfg = entry.tracker_config(dev, **fields)
+        voc = entry.train_vocabulary(views, cfg)
+        s1 = System(config=cfg, vocabulary=voc)
+        for i in range(RESUME_FRAMES):
+            s1.track_rgbd(*fr[i], i * 0.05)
+        s1.tracker.sync_mapping()
+        saved = s1.tracker.map
+        state1, n_kf1 = s1.tracker.state, int(saved.kf_valid.sum())
+        path = f"{tmp}/session1.npz"
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s1.save_atlas(path)
+        save_ms = (time.perf_counter() - t1) * 1e3
+        s1.shutdown()
+        t1 = time.perf_counter()
+        s2 = System(config=entry.tracker_config(dev, **fields), vocabulary=voc, atlas_path=path)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t1) * 1e3
+        t2 = s2.tracker
+        n_db = int(t2.loop_closer.db.valid.sum())
+        same = all(torch.equal(getattr(t2.map, f.name), getattr(saved, f.name))
+                   for f in dataclasses.fields(saved) if f.name not in ("active_map", "n_maps"))
+        viewer = s2.start_viewer(port=0)
+        merged, frame_ms = False, []
+        with ViewerClient(viewer.port) as client:
+            snap = snapshot()
+            mk.launches = pk.launches = 0
+            for k, i in enumerate(range(2, 40, 2)):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                s2.track_rgbd(*fr[i], 100.0 + k * 0.05)
+                t2.sync_mapping()
+                torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t1) * 1e3)
+                if t2.loop_closer.n_merges > 0:
+                    merged = True
+                    break
+            launches_res = {"K1": mk.launches, "K2": pk.launches, **since(snap)}
+            time.sleep(0.5)  # one more round of every endpoint on the final map
+        ids = np.unique(t2.map.kf_map_id.cpu().numpy()[t2.map.kf_valid.cpu().numpy()])
+        stats = json.loads(_fetch(f"http://127.0.0.1:{viewer.port}/stats.json")[1])
+        pngs = {e: _fetch(f"http://127.0.0.1:{viewer.port}{e}")[1][:8] == png.SIGNATURE
+                for e in ("/map.png", "/frame.png")}
+        _fetch(f"http://127.0.0.1:{viewer.port}/cmd?localization=1")
+        paused = s2.localization_only
+        _fetch(f"http://127.0.0.1:{viewer.port}/cmd?localization=0")
+        # 3. the 3D map and the PLY
+        t1 = time.perf_counter()
+        s2.save_map_3d(f"{tmp}/map.html")
+        map3d_ms = (time.perf_counter() - t1) * 1e3
+        viz.save_map_ply(f"{tmp}/map.ply", t2.map)
+        with open(f"{tmp}/map.ply") as f:
+            n_vertex = int([ln for ln in f.read(400).splitlines()
+                            if ln.startswith("element vertex")][0].split()[-1])
+        want_vertex = int(t2.map.lm_valid.sum()) + int(t2.map.kf_valid.sum())
+        html_bytes = os.path.getsize(f"{tmp}/map.html")
+        print(f"[io] {gpu}: resume session 1: state {state1}, {n_kf1} keyframes, save_atlas "
+              f"{os.path.getsize(path)} bytes in {save_ms:.1f} ms; "
+              f"System(atlas_path) {load_ms:.1f} ms, database {n_db} keyframes, loaded map "
+              f"{'equal' if same else 'NOT equal'} to the saved one")
+        print(f"[io] resumed session: merged {merged} after {len(frame_ms)} frames (ms "
+              f"{[round(x, 1) for x in frame_ms]}), map ids {ids.tolist()}, launches "
+              f"{launches_res}; viewer served {client.ok} with {len(client.errors)} errors "
+              f"{client.errors[:3]}, final stats {stats}, PNG signatures {pngs}, "
+              f"localization toggled {paused}; save_map_3d {html_bytes} bytes in "
+              f"{map3d_ms:.1f} ms, PLY {n_vertex} vertices (expected {want_vertex})")
+        s2.shutdown()
+        for cond, msg in ((state1 == tracker.OK and n_kf1 >= 8,
+                           f"resume: session 1 state {state1}, {n_kf1} keyframes"),
+                          (same, "resume: the loaded map differs from the saved one"),
+                          (n_db >= 8, f"resume: database of {n_db} keyframes"),
+                          (merged, "resume: the resumed session never merged"),
+                          (len(ids) == 1, f"resume: map ids {ids.tolist()} at the end"),
+                          (launches_res["K1"] >= 1 and launches_res["K2"] >= 1,
+                           f"resume: launches {launches_res}"),
+                          (all(v >= 1 for v in client.ok.values()) and not client.errors,
+                           f"viewer: served {client.ok}, errors {client.errors[:3]}"),
+                          (all(pngs.values()) and stats["n_keyframes"] >= 8,
+                           f"viewer: {pngs} {stats}"),
+                          (paused, "viewer: /cmd?localization=1 did not pause mapping"),
+                          (n_vertex == want_vertex, f"PLY: {n_vertex} vs {want_vertex}")):
+            if not cond:
+                print(f"[io] GATE FAILED: {msg}")
+                failed.append(msg)
+        out["resume"] = dict(session1_kf=n_kf1, save_atlas_ms=save_ms,
+                             atlas_bytes=os.path.getsize(path),
+                             load_ms=load_ms, database=n_db, merged=merged,
+                             frames_to_merge=len(frame_ms), frame_ms=frame_ms,
+                             launches=launches_res, viewer_served=client.ok,
+                             map3d_ms=map3d_ms, wall_s=time.perf_counter() - t0)
+        out["resumed_map"] = t2.map
+        out["K8"] = cfg.K
+    finally:
+        fuse.fuse_into_keyframe, fuse.merge_duplicates_at_keyframe = o["fuse"], o["merge"]
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: launches_drv[k] + launches_res[k] for k in launches_drv}
+    print(f"[io] launches of the driver's and the resumed session by site: {launches}")
+    out.update(failed=failed, launches=launches, err={"K1": 0.0, "K2": 0.0})
+    return out
+
+
+# ---------------------------------------------------------------- phase 15
+FLEET_B = 8
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def phase_parallel(dev, gpu, resumed_map, K8):
+    """Phase 15: the landmark-sharded global BA over an NCCL world of one on
+    the resumed map against GlobalBARunner; the fleet step at B = 8 at full
+    width against each session's own step, K2 launched once over the batch
+    and held against its plain version; extract_batched against extract at
+    full width; their times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from orb_slam3_tpu_torch import entry
+    from orb_slam3_tpu_torch.frontend import camera as cam
+    from orb_slam3_tpu_torch.frontend import match_kernel as mk
+    from orb_slam3_tpu_torch.frontend import orb
+    from orb_slam3_tpu_torch.mapping import global_ba
+    from orb_slam3_tpu_torch.parallel import fleet, map_ba, multihost
+    from orb_slam3_tpu_torch.tracking import pose_kernel as pk
+
+    failed, out = [], {}
+    # 1. the global BA over an NCCL world of one
+    s = resumed_map
+    multihost.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0, device=dev)
+    try:
+        backend = dist.get_backend()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_dist = map_ba.distributed_global_ba(s, K8, num_iters=10, device=dev)
+        torch.cuda.synchronize()
+        dist_ms = (time.perf_counter() - t0) * 1e3
+        s_one = map_ba.distributed_global_ba(s, K8, num_iters=10, cam_bucket=1, edge_bucket=1,
+                                             device=dev)
+    finally:
+        dist.destroy_process_group()
+    # the runner as one chunk of 10 iterations: the same LM schedule (its
+    # chunks restart lambda; they are its abort granularity)
+    t0 = time.perf_counter()
+    s_run = global_ba.GlobalBARunner(K8, cam.PINHOLE, num_iters=10, chunk=10).run(s)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    s_gba = global_ba.global_ba(s, K8, num_iters=10)
+    bits = all(torch.equal(getattr(s_one, k), getattr(s_gba, k)) for k in ("kf_R", "kf_t",
+                                                                           "lm_pos"))
+    kv, lv = s.kf_valid, s.lm_valid
+    dR = (s_dist.kf_R[kv] - s_run.kf_R[kv]).abs().max().item()
+    dt = (s_dist.kf_t[kv] - s_run.kf_t[kv]).abs().max().item()
+    dX = (s_dist.lm_pos[lv] - s_run.lm_pos[lv]).abs().max().item()
+    moved = (s_dist.kf_t[kv] - s.kf_t[kv]).abs().max().item()
+    print(f"[parallel] {gpu}: distributed_global_ba over {backend} (world of one), "
+          f"{int(kv.sum())} keyframes, {int(lv.sum())} landmarks: {dist_ms:.1f} ms; "
+          f"GlobalBARunner {run_ms:.1f} ms; poses |dR| {dR:.3g} |dt| {dt:.3g}, points "
+          f"{dX:.3g} (gates 5e-3 / 2e-2; moved {moved:.3g}); buckets of 1 against global_ba: "
+          f"{'the same bits' if bits else 'not bitwise equal'}")
+    if not (dR <= 5e-3 and dt <= 5e-3 and dX <= 2e-2):
+        failed.append(f"distributed GBA vs GlobalBARunner: {dR:.3g} {dt:.3g} {dX:.3g}")
+    out["gba"] = dict(backend=backend, dist_ms=dist_ms, runner_ms=run_ms, dR=dR, dt=dt, dX=dX,
+                      same_bits_as_global_ba=bits, keyframes=int(kv.sum()),
+                      landmarks=int(lv.sum()))
+
+    # 2. the fleet at B = 8: track-full's scene from 8 perturbed start poses
+    cfg = orb.OrbConfig(n_features=1000, n_levels=8)
+    K = cam.make_pinhole(*entry.FULL_K, device=dev)
+    img_np = entry.blob_frame(FULL_H, FULL_W, seed=1)
+    f0 = orb.extract(torch.from_numpy(img_np).to(dev), cfg)
+    cols = [[] for _ in range(9)]
+    for b in range(FLEET_B):
+        xi = np.asarray(entry.START_XI) * (0.4 + 0.2 * b) * (1 if b % 2 else -1)
+        sc = entry.make_scene(f0.xy.cpu().numpy(), f0.octave.cpu().numpy(),
+                              f0.descriptors.cpu().numpy(), f0.valid.cpu().numpy(),
+                              K.cpu().numpy(), cfg.n_levels, FULL_L, seed=2, start_xi=xi)
+        for i, a in enumerate([img_np] + [sc[k] for k in (
+                "lm_pos", "lm_desc", "lm_valid", "lm_max_dist", "lm_min_dist", "lm_normal",
+                "R0", "t0")]):
+            cols[i].append(a)
+    args = [torch.from_numpy(np.ascontiguousarray(np.stack(c))).to(dev) for c in cols]
+    step = fleet.make_fleet_step(cfg, K, img_wh=(FULL_W, FULL_H), device=dev)
+    step(*args)  # warm the allocator
+    rec = {}
+    k2_orig = pk.pose_ba
+
+    def k2_rec(*a, **kw):
+        rec["k2"] = (a, kw)
+        return k2_orig(*a, **kw)
+
+    pk.pose_ba = k2_rec
+    try:
+        mk.launches = pk.launches = 0
+        R, t, n = step(*args)
+        torch.cuda.synchronize()
+        launches = {"K1": mk.launches, "K2": pk.launches}
+    finally:
+        pk.pose_ba = k2_orig
+    sf = cfg.scale_factors(dev)
+    one = [lambda b=b: fleet._track_one(*(a[b] for a in args), cfg_orb=cfg, kind=cam.PINHOLE,
+                                        K=K, img_wh=(float(FULL_W), float(FULL_H)),
+                                        scale_factors=sf, match_radius=15.0)
+           for b in range(FLEET_B)]
+    eR = et = 0.0
+    n_eq = True
+    for b in range(FLEET_B):
+        Rb, tb, nb = one[b]()
+        eR = max(eR, (R[b] - Rb).abs().max().item())
+        et = max(et, (t[b] - tb).abs().max().item())
+        n_eq &= int(nb) == int(n[b])
+    a2, kw2 = rec["k2"]
+    err_k2 = compare_k2(pk.pose_ba(*a2, **kw2), pk.pose_ba_plain(*a2, **kw2), "fleet B=8")
+    step_ms = time_ms(lambda: step(*args), runs=10, warmup=2)
+    seq_ms = time_ms(lambda: [f() for f in one], runs=5, warmup=1)
+    fn = lambda: pk.pose_ba(*a2, **kw2)  # noqa: E731
+    k2_ms = time_ms(fn, runs=20)
+    k2_dev, k2_by = device_kernel_ms(fn, "pose_kernel")
+    k2_plain = time_ms(lambda: pk.pose_ba_plain(*a2, **kw2), runs=2, warmup=0)
+    nbytes, ops = k2_bound(a2, kw2)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    print(f"[parallel] {gpu}: fleet B={FLEET_B} at {FULL_W}x{FULL_H}, L={FULL_L}: launches "
+          f"{launches} (K2 cluster {pk.cluster_size(a2[3].shape[1])} CTAs x {a2[3].shape[0]} "
+          f"problems); n {n.tolist()}; against each session's own step: |dR| {eR:.3g} "
+          f"|dt| {et:.3g}, n equal {n_eq}; K2 vs plain at B=8 max |err| {err_k2:.3g}")
+    print(f"[parallel] {gpu}: fleet step {step_ms:.3f} ms; 8 sequential single-session steps "
+          f"{seq_ms:.3f} ms; K2 at B=8: {k2_ms:.4f} ms per call, device {k2_dev:.5f} ms "
+          f"({k2_by}), plain {k2_plain:.2f} ms, bound {b_ms:.6f} ms ({b_by})")
+    for cond, msg in ((launches == {"K1": FLEET_B, "K2": 1}, f"fleet launches {launches}"),
+                      (eR <= 1e-5 and et <= 1e-4 and n_eq,
+                       f"fleet vs single session: {eR:.3g} {et:.3g} n equal {n_eq}"),
+                      (int(n.min()) >= 0.9 * sc["n_frame"],
+                       f"fleet inliers {n.tolist()} of {sc['n_frame']}")):
+        if not cond:
+            print(f"[parallel] GATE FAILED: {msg}")
+            failed.append(msg)
+    out["fleet"] = dict(B=FLEET_B, launches=launches, n=n.tolist(), dR=eR, dt=et,
+                        step_ms=step_ms, sequential_ms=seq_ms)
+    k2_fleet = dict(B=FLEET_B, N=int(a2[3].shape[1]), launches=launches["K2"], ms=k2_ms,
+                    device_ms=k2_dev, device_ms_by=k2_by, plain_ms=k2_plain, bound_ms=b_ms,
+                    bound_by=b_by, bytes=nbytes, ops=ops, max_abs_err=err_k2)
+
+    # 3. batched extraction against extract at full width
+    img = args[0][0]
+    a = orb.extract(img, cfg)
+    b_ = orb.extract_batched(img, cfg)
+    bad = []
+    off_a = off_b = 0
+    for lvl, nl in enumerate(cfg.features_per_level()):
+        na = int((a.octave == lvl).sum())
+        sa, sb = slice(off_a, off_a + na), slice(off_b, off_b + na)
+        v = a.valid[sa]
+        if not torch.equal(b_.valid[sb], v):
+            bad.append(f"level {lvl}: valid")
+        elif v.any():
+            if (b_.xy[sb][v] - a.xy[sa][v]).abs().max().item() > 1e-4:
+                bad.append(f"level {lvl}: xy")
+            if not torch.equal(b_.descriptors[sb][v], a.descriptors[sa][v]):
+                bad.append(f"level {lvl}: descriptors")
+            if (b_.angle[sb][v] - a.angle[sa][v]).abs().max().item() > 1e-5:
+                bad.append(f"level {lvl}: angle")
+        off_a, off_b = off_a + na, off_b + nl
+    e_ms = time_ms(lambda: orb.extract(img, cfg), runs=20)
+    eb_ms = time_ms(lambda: orb.extract_batched(img, cfg), runs=20)
+    kernels = {}
+    for name, fn in (("extract", lambda: orb.extract(img, cfg)),
+                     ("extract_batched", lambda: orb.extract_batched(img, cfg))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels[name] = device_busy(prof)[1]
+    print(f"[parallel] {gpu}: extract_batched vs extract at {FULL_W}x{FULL_H}: "
+          f"{'equal on every valid keypoint' if not bad else bad}; {eb_ms:.2f} ms against "
+          f"{e_ms:.2f} ms; CUDA kernels per call {kernels}")
+    if bad:
+        failed.append(f"extract_batched: {bad}")
+    out["extract_batched"] = dict(ms=eb_ms, extract_ms=e_ms, kernels=kernels)
+    out.update(failed=failed, launches=launches, err={"K1": 0.0, "K2": err_k2},
+               k2_fleet=k2_fleet)
+    return out
+
+
 def main():
     import torch
 
@@ -3500,6 +4014,14 @@ def main():
     t13 = time.perf_counter()
     asy = phase_async(dev, gpu)
     print(f"[phase] phase 13 took {time.perf_counter() - t13:.1f} s")
+    t14 = time.perf_counter()
+    io = phase_io(dev, gpu)
+    resumed_map, K8 = io.pop("resumed_map"), io.pop("K8")
+    print(f"[phase] phase 14 took {time.perf_counter() - t14:.1f} s")
+    t15 = time.perf_counter()
+    par = phase_parallel(dev, gpu, resumed_map, K8)
+    print(f"[phase] phase 15 took {time.perf_counter() - t15:.1f} s; phases 14-15 "
+          f"{time.perf_counter() - t14:.1f} s")
     # each kernel's row: its launches on the five main paths (and by call
     # site), the bootstrap's numbers at N = lmax, K1's at the fuse, the
     # depth sessions' and the settings sessions' call sites
@@ -3513,20 +4035,25 @@ def main():
                                    "slam-settings": settings["launches"][name],
                                    "slam-loop": loop["launches"][name],
                                    "slam-vi": vi["launches"][name],
-                                   "slam-async": asy["launches"][name]}
+                                   "slam-async": asy["launches"][name],
+                                   "io (EuRoC driver, resume)": io["launches"][name],
+                                   "parallel (fleet)": par["launches"][name]}
         row["launches"] = sum(row["launches_by_path"].values())
         row["max_abs_err"] = row["max_err"] = max(row["max_abs_err"], boot["err"][name],
                                                   depth["err"][name], settings["err"][name],
                                                   loop["err"][name], vi["err"][name],
-                                                  asy["err"][name])
+                                                  asy["err"][name], io["err"][name],
+                                                  par["err"][name])
         row["bootstrap"] = b
     k1, k2 = report["kernels"]
     # phase 13's fuse runs on the mapper thread (its launches counted per
     # thread); loop-full's mapper thread launches K1 at the fuse and merge
     async_fuse_k1 = asy["launches"]["K1 fuse"]
     fuse_k1 = (slam["fuse_k1"] + depth["launches"]["K1 fuse"] + settings["launches"]["K1 fuse"]
-               + loop["launches"]["K1 fuse"] + vi["launches"]["K1 fuse"] + async_fuse_k1)
-    right_k1, merge_k1 = settings["launches"]["K1 right"], loop["launches"]["K1 merge"]
+               + loop["launches"]["K1 fuse"] + vi["launches"]["K1 fuse"] + async_fuse_k1
+               + io["launches"]["K1 fuse"])
+    right_k1 = settings["launches"]["K1 right"]
+    merge_k1 = loop["launches"]["K1 merge"] + io["launches"]["K1 merge"]
     k1["launches_by_site"] = {
         "track (match_local_map)": k1["launches"] - fuse_k1 - depth["launches"]["K1 vo"]
         - right_k1 - merge_k1,
@@ -3555,6 +4082,16 @@ def main():
     k1["inertial"] = vi["call_sites"]["K1_inertial"]
     k1["fuse_recent"] = vi["call_sites"]["K1_fuse_recent"]
     k2["inertial"] = vi["call_sites"]["K2_inertial"]
+    k2["fleet"] = par.pop("k2_fleet")
+    k1["launches_by_site"]["of which the EuRoC driver and the resumed session (phase 14)"] = \
+        io["launches"]["K1"]
+    k1["launches_by_site"]["of which the fuse and merge on the mapper thread (phase 14)"] = \
+        io["launches"]["K1 mapper thread"]
+    k1["launches_by_site"]["of which the fleet (phase 15, once per session)"] = \
+        par["launches"]["K1"]
+    k2["launches_by_site"]["of which the EuRoC driver and the resumed session (phase 14)"] = \
+        io["launches"]["K2"]
+    k2["launches_by_site"]["fleet (B = 8, once per fleet step)"] = par["launches"]["K2"]
     report["bootstrap"] = {k: v for k, v in boot.items() if k != "kernels"}
     report["slam"] = {k: v for k, v in slam.items() if k != "k1_fuse"}
     report["slam_depth"] = {k: v for k, v in depth.items() if k != "call_sites"}
@@ -3562,9 +4099,11 @@ def main():
     report["slam_loop"] = {k: v for k, v in loop.items() if k != "call_sites"}
     report["slam_vi"] = {k: v for k, v in vi.items() if k != "call_sites"}
     report["slam_async"] = asy
+    report["io"] = io
+    report["parallel"] = par
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     failed = (boot["failed"] + slam["failed"] + depth["failed"] + settings["failed"]
-              + loop["failed"] + vi["failed"] + asy["failed"])
+              + loop["failed"] + vi["failed"] + asy["failed"] + io["failed"] + par["failed"])
     if failed:
         print(json.dumps(report, default=str))
         raise SmokeFailure(f"gates failed: {failed}")

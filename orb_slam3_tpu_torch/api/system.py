@@ -9,15 +9,17 @@ sensor asks, each with the frame's IMU measurements for an inertial sensor
 `Camera.newWidth/newHeight` resizes every image); switch
 localization-only mode on and off, query the tracking state, reset, export
 trajectories. With a vocabulary the session relocalizes, closes loops and
-merges maps; `run_global_ba` optimizes the active map. The session maps on
+merges maps; `run_global_ba` optimizes the active map. `save_atlas` writes
+the Atlas and `atlas_path` resumes from one (`api/checkpoint.py`, files
+shared with the JAX package); `save_map_3d` writes the interactive HTML map
+and `start_viewer` serves the live session over HTTP. The session maps on
 the background mapper thread unless its config says otherwise; call
-`shutdown` before leaving. Each entry point the JAX façade has beyond these
-raises NotImplementedError naming the slice (ROADMAP Queue 1 item) that
-brings it.
+`shutdown` before leaving.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
@@ -28,14 +30,9 @@ from .. import device as device_mod
 from ..frontend.rectify import StereoRectifier
 from ..tracking import tracker as trk
 from ..utils.timing import GLOBAL_TIMER
+from . import checkpoint
 from . import settings as settings_mod
 from . import trajectory
-
-_API = "remaining-API slice (ROADMAP Queue 1 item 15)"
-
-
-def _not_ported(what: str, slice_: str):
-    raise NotImplementedError(f"{what} is not ported yet: it comes with the {slice_}")
 
 
 class System:
@@ -59,7 +56,11 @@ class System:
         config, when given, is used and the settings file is not read, as
         in the JAX façade. vocabulary: a `place.vocab.Vocabulary`, which
         attaches the loop closer (relocalization, loop closing, map
-        merging)."""
+        merging). atlas_path: a checkpoint (`save_atlas`, either package's)
+        to resume from: its maps are loaded, tracking starts in a fresh
+        map, and the keyframe database is rebuilt from the loaded
+        keyframes, so the session relocalizes into and merges with them
+        (`System.cc:171`, `Atlas::PostLoad`)."""
         self.rectifier = None
         self._resize_hw = None
         if config is None:
@@ -77,12 +78,24 @@ class System:
                 self._resize_hw = (s.resize_wh[1], s.resize_wh[0])
         if sensor != self.MONOCULAR and sensor != config.sensor:
             raise ValueError(f"sensor {sensor!r} but the config's is {config.sensor!r}")
-        if atlas_path is not None:
-            _not_ported("loading an Atlas (api/checkpoint.py)", _API)
         self.tracker = trk.Tracker(config, device=device)
         self.vocabulary = vocabulary
+        self._viewer = None
+        self._last_img = None
+        self._frame_lock = threading.RLock()  # frames and the viewer's commands
+        if atlas_path is not None:
+            from ..atlas import ops as atlas_ops
+
+            state, _ = checkpoint.load_atlas(atlas_path, vocabulary, device=self.tracker.device)
+            if state.fmax != self.tracker.map.fmax:
+                raise ValueError(f"the atlas holds {state.fmax} features per keyframe, the "
+                                 f"config extracts {self.tracker.map.fmax}")
+            self.tracker.cfg.kmax, self.tracker.cfg.lmax = state.kmax, state.lmax
+            self.tracker.map = atlas_ops.create_map(state)
         if vocabulary is not None:
             self.tracker.attach_loop_closer(vocabulary)
+            if atlas_path is not None:
+                self.tracker.loop_closer.rebuild_db(self.tracker.map)
 
     # ------------------------------------------------------------------
     def _expect(self, sensor: str, call: str, imu):
@@ -103,10 +116,13 @@ class System:
                              align_corners=False, antialias=False)[0, 0]
 
     def _track(self, img, timestamp, **inputs):
-        with GLOBAL_TIMER.stage("track.process_total"):
-            self.tracker.process(img, timestamp, **inputs)
-        with GLOBAL_TIMER.stage("track.pose_return"):
-            return self.current_pose(settle=False)
+        with self._frame_lock:
+            if self._viewer is not None:
+                self._last_img = img  # the live viewer's frame view
+            with GLOBAL_TIMER.stage("track.process_total"):
+                self.tracker.process(img, timestamp, **inputs)
+            with GLOBAL_TIMER.stage("track.pose_return"):
+                return self.current_pose(settle=False)
 
     def track_monocular(self, img, timestamp: float, imu=None):
         """System::TrackMonocular (`System.cc:399`); imu: the [M, 7] rows
@@ -171,6 +187,10 @@ class System:
     def deactivate_localization_mode(self):
         self.tracker.mapping_paused = False
 
+    @property
+    def localization_only(self) -> bool:
+        return self.tracker.mapping_paused
+
     def reset(self):
         """System::Reset: drop everything and start a fresh Atlas."""
         self.tracker.shutdown()
@@ -185,9 +205,12 @@ class System:
             self.tracker._timestamp_jump()
 
     # ------------------------------------------------------------------
-    def save_trajectory_tum(self, path: str):
+    def save_trajectory_tum(self, path: str, time_offset: float = 0.0):
+        """The frame trajectory in TUM format, `time_offset` added to every
+        timestamp (a driver that tracked in seconds since its first frame
+        writes the dataset's own times)."""
         ts, R, t, ok = self.tracker.poses()
-        trajectory.save_tum(path, ts, R, t, ok)
+        trajectory.save_tum(path, ts + time_offset, R, t, ok)
 
     def save_trajectory_euroc(self, path: str):
         """SaveTrajectoryEuRoC (`System.cc:662-882`): the camera frame, or
@@ -210,12 +233,13 @@ class System:
         ts, R, t, ok = self.tracker.poses()
         trajectory.save_kitti(path, ts, R, t, ok)
 
-    def save_keyframe_trajectory_tum(self, path: str):
+    def save_keyframe_trajectory_tum(self, path: str, time_offset: float = 0.0):
         """System::SaveKeyFrameTrajectoryTUM (`System.cc:884`)."""
         self.tracker.sync_mapping()
         s = self.tracker.map
         kv = s.kf_valid.cpu().numpy()
-        trajectory.save_tum(path, s.kf_timestamp.cpu().numpy()[kv],
+        trajectory.save_tum(path, s.kf_timestamp.cpu().numpy()[kv].astype(np.float64)
+                            + time_offset,
                             s.kf_R.cpu().numpy()[kv], s.kf_t.cpu().numpy()[kv])
 
     def run_global_ba(self, num_iters: int = 10):
@@ -232,10 +256,22 @@ class System:
         tr._mapper_stale = tr.async_mapper is not None
 
     def save_atlas(self, path: str):
-        _not_ported("saving the Atlas (api/checkpoint.py)", _API)
+        """System::SaveAtlas (`System.cc:1403`): every map and the
+        vocabulary's checksum in one npz, after the mapper has drained (the
+        map changes on the mapper's stream)."""
+        self.tracker.sync_mapping()
+        checkpoint.save_atlas(path, self.tracker.map, self.vocabulary)
 
     def save_map_3d(self, path: str):
-        _not_ported("the 3D map viewer (api/viz.py)", _API)
+        """The interactive 3D map (the MapDrawer / Viewer role,
+        `MapDrawer.cc:135-447`): landmarks, keyframe frusta, the spanning
+        tree and the trajectory in one self-contained HTML file."""
+        from . import evaluate, viz
+
+        self.tracker.sync_mapping()
+        ts, R, t, ok = self.tracker.poses()
+        traj = evaluate.camera_centers(R[ok], t[ok]) if ok.any() else None
+        viz.save_map_html(path, self.tracker.map, traj)
 
     def save_debug_data(self, path: str):
         """System::SaveDebugData (`System.cc:1265-1318`): the inertial
@@ -253,12 +289,24 @@ class System:
                         f"{ba[0]:.6f} {ba[1]:.6f} {ba[2]:.6f}\n")
 
     def start_viewer(self, port: int = 8090, refresh_s: float = 1.0):
-        _not_ported("the live viewer (api/viewer.py)", _API)
+        """Start the live HTTP viewer on 127.0.0.1 (the Viewer thread's role,
+        `Viewer.cc:162`; `api/viewer.py`); port 0 takes a free port, read
+        it from the returned LiveViewer's `port`. `shutdown` stops it."""
+        from .viewer import LiveViewer
+
+        if self._viewer is not None:
+            self._viewer.stop()
+        self._viewer = LiveViewer(self, port=port, refresh_s=refresh_s)
+        self._viewer.start()
+        return self._viewer
 
     def shutdown(self):
-        """System::Shutdown (`System.cc:515`): drain the background mapper,
-        join or abort a running background global BA and fold a finished
-        one into the map, stop the mapper thread."""
+        """System::Shutdown (`System.cc:515`): stop the live viewer, drain
+        the background mapper, join or abort a running background global BA
+        and fold a finished one into the map, stop the mapper thread."""
+        if self._viewer is not None:
+            self._viewer.stop()
+            self._viewer = None
         tr = self.tracker
         tr.sync_mapping()
         m = tr.async_mapper

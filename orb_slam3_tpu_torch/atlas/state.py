@@ -126,6 +126,12 @@ def empty(kmax: int = 256, fmax: int = 1024, lmax: int = 16384, device=None) -> 
     )
 
 
+def to_device(s: MapState, dev) -> MapState:
+    """The map with every field on `dev`."""
+    return dataclasses.replace(s, **{f.name: getattr(s, f.name).to(dev)
+                                     for f in dataclasses.fields(s)})
+
+
 # ---------------------------------------------------------------------------
 # Covisibility graph (KeyFrame::UpdateConnections as an incidence product)
 # ---------------------------------------------------------------------------

@@ -35,7 +35,9 @@ are made once by `kb8_rays` (a KB8 fisheye camera, the role of
 tests/synthetic_scene.render_kb8 without OpenCV) or `radtan_rays` (the raw
 pixels of a pinhole camera with rad-tan distortion; `render_radtan`);
 `kb8_stereo_settings` and `euroc_legacy_settings` write the settings files
-of those two rigs.
+of those two rigs, `pinhole_settings` one for a plain pinhole camera, and
+`write_euroc_folder` writes frames as a EuRoC dataset folder for the
+drivers (`drivers.py`).
 
 With an inertial config (`sensor="mono-imu"`, `"stereo-imu"` or
 `"rgbd-imu"`) `slam(frames, cfg, imu=packets, timestamps=...)` passes each
@@ -53,6 +55,7 @@ ray-cast quads, 5x5 blur and bilinear sampling without OpenCV).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -365,6 +368,69 @@ ORBextractor.nLevels: {n_levels}
 ORBextractor.iniThFAST: 20
 ORBextractor.minThFAST: 7
 """
+
+
+def pinhole_settings(K, img_wh, n_features: int = 1000, n_levels: int = 8,
+                     fps: float = 20.0, bf: float = 0.0, th_depth: float = 20.0) -> str:
+    """The text of an old-format settings file (Camera.fx ...) for an
+    undistorted pinhole camera K = (fx, fy, cx, cy) at img_wh, with
+    Camera.bf and ThDepth for the depth sensors."""
+    fx, fy, cx, cy = (float(v) for v in K[:4])
+    return f"""%YAML:1.0
+Camera.type: "PinHole"
+Camera.fx: {fx!r}
+Camera.fy: {fy!r}
+Camera.cx: {cx!r}
+Camera.cy: {cy!r}
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+Camera.width: {img_wh[0]}
+Camera.height: {img_wh[1]}
+Camera.fps: {fps!r}
+Camera.bf: {float(bf)!r}
+Camera.RGB: 1
+ThDepth: {th_depth!r}
+DepthMapFactor: 1.0
+ORBextractor.nFeatures: {n_features}
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: {n_levels}
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
+
+
+def write_euroc_folder(root, frames, fps: float = 20.0, t0_ns: int = 1_403_636_579_763_555_584,
+                       right=None, imu=None) -> list:
+    """Write grey frames (float or uint8 [H, W]) as a EuRoC ASL folder:
+    mav0/cam0/data.csv and mav0/cam0/data/<ns>.png (PNG from
+    utils/png.py), with `right` frames under cam1 and `imu` rows [M, 7]
+    (t in seconds from the first frame, gyro, acc) under imu0. Returns the
+    frame timestamps in ns."""
+    from .utils import png
+
+    ts = [t0_ns + int(round(i * 1e9 / fps)) for i in range(len(frames))]
+    for cam, imgs in (("cam0", frames), ("cam1", right)):
+        if imgs is None:
+            continue
+        d = os.path.join(root, "mav0", cam, "data")
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(root, "mav0", cam, "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n")
+            for t, img in zip(ts, imgs):
+                png.write(os.path.join(d, f"{t}.png"),
+                          np.clip(np.rint(np.asarray(img)), 0, 255).astype(np.uint8))
+                f.write(f"{t},{t}.png\n")
+    if imu is not None:
+        d = os.path.join(root, "mav0", "imu0")
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "data.csv"), "w") as f:
+            f.write("#timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z\n")
+            for row in np.asarray(imu, np.float64):
+                f.write(f"{t0_ns + int(round(row[0] * 1e9))},"
+                        + ",".join(repr(float(v)) for v in row[1:7]) + "\n")
+    return ts
 
 
 EUROC_K = (458.654, 457.296, 367.215, 248.375)  # cam0 of EuRoC MAV (tests/test_api.py)

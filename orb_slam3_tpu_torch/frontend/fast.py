@@ -22,9 +22,9 @@ ARC = 9  # contiguous arc length for FAST-9/16
 
 
 def _shifted(img, dx, dy):
-    """img[y+dy, x+dx], wrapping around at the borders like the JAX
+    """img[..., y+dy, x+dx], wrapping around at the borders like the JAX
     package's jnp.roll (the border band is masked out later)."""
-    return torch.roll(img, shifts=(-dy, -dx), dims=(0, 1))
+    return torch.roll(img, shifts=(-dy, -dx), dims=(-2, -1))
 
 
 def _arc_reduce_min(v16):
@@ -41,7 +41,7 @@ def _arc_reduce_min(v16):
 
 
 def fast_score(img):
-    """Threshold-free FAST-9/16 score map [H, W]: the max over arc starts of
+    """Threshold-free FAST-9/16 score map [..., H, W]: the max over arc starts of
     the arc-min signed difference (bright) or its negation (dark). A pixel
     is a corner at threshold t exactly when the score exceeds t."""
     img = img.to(torch.float32)
@@ -52,8 +52,9 @@ def fast_score(img):
 
 
 def nonmax_3x3(score):
-    """Keep pixels that are the max of their 3x3 neighbourhood (-inf padding)."""
-    mx = F.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]
+    """Keep pixels that are the max of their 3x3 neighbourhood (-inf
+    padding); score [H, W] or [B, H, W]."""
+    mx = F.max_pool2d(score.unsqueeze(-3), 3, stride=1, padding=1).squeeze(-3)
     return torch.where((score >= mx) & (score > 0.0), score, torch.zeros_like(score))
 
 

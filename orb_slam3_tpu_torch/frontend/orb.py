@@ -264,3 +264,109 @@ def extract(img, cfg: OrbConfig = OrbConfig()):
         descriptors=desc,
         valid=torch.cat([p[3] for p in parts]),
     )
+
+
+def _wrap_padded(lv, H0: int, W0: int, r: int = 3):
+    """Level `lv` [h, w] in the corner of an [H0, W0] frame whose rows and
+    columns just past the level (r of them) and the frame's last r rows and
+    columns hold the level's circular continuation: torch.roll over the
+    frame then reads, for every pixel of the level, the neighbours a roll
+    over the level alone reads (fast._shifted's wrap-around)."""
+    h, w = lv.shape
+    t = F.pad(lv[None, None], (r, r, r, r), mode="circular")[0, 0]   # [h + 2r, w + 2r]
+    out = torch.zeros((H0, W0), dtype=lv.dtype, device=lv.device)
+    out[:h + r, :w + r] = t[r:, r:]
+    out[H0 - r:, :w + r] = t[:r, r:]
+    out[:h + r, W0 - r:] = t[r:, :r]
+    out[H0 - r:, W0 - r:] = t[:r, :r]
+    return out
+
+
+def _reflect_padded(lv, H0: int, W0: int, r: int = 3):
+    """Level `lv` [h, w] in the corner of an [H0, W0] frame, continued by r
+    reflect-101 rows and columns (the blur's own border) and edge values
+    beyond."""
+    h, w = lv.shape
+    t = F.pad(lv[None, None], (0, r, 0, r), mode="reflect")
+    return F.pad(t, (0, W0 - w - r, 0, H0 - h - r), mode="replicate")[0, 0]
+
+
+def extract_batched(img, cfg: OrbConfig = OrbConfig()):
+    """All pyramid levels at once (port of the JAX package's experimental
+    `extract_batched`, `frontend/orb.py:393`): every level is placed in a
+    frame of the level-0 shape and stacked, so FAST, the cell fallback,
+    non-max suppression, selection, the blur, the patch gather, orientation
+    and BRIEF each run once over [n_levels, H, W] (or every level's
+    keypoints), instead of once per level. The output contract is
+    `extract`'s: static size sum(features_per_level), level-0
+    coordinates.
+
+    Where the JAX function edge-pads each level, this one pads it so that
+    the batched passes see what the per-level passes see: a circular
+    continuation for FAST (its wrap-around near the border), the fallback's
+    cells cut to the level's extent, and a reflect-101 continuation under
+    the blur. Every valid keypoint then equals `extract`'s (position,
+    octave, angle, descriptor); invalid rows hold other placeholders."""
+    img = img.to(torch.float32)
+    dev = img.device
+    Lv = cfg.n_levels
+    H0, W0 = img.shape
+    levels = pyr_mod.build_pyramid(img, Lv, cfg.scale_factor)
+    shapes = [tuple(lv.shape) for lv in levels]
+    budgets = cfg.features_per_level()
+    n_per = max(budgets)
+    raw = torch.stack([levels[0]] + [_wrap_padded(lv, H0, W0) for lv in levels[1:]])
+    hs = torch.tensor([h for h, _ in shapes], device=dev)[:, None, None]
+    ws = torch.tensor([w for _, w in shapes], device=dev)[:, None, None]
+    ys = torch.arange(H0, device=dev)[None, :, None]
+    xs = torch.arange(W0, device=dev)[None, None, :]
+
+    # FAST, with the per-cell high-threshold fallback on each level's extent
+    s = fast_mod.fast_score(raw)
+    zero = torch.zeros_like(s)
+    r_hi = torch.where(s > cfg.ini_th_fast, s, zero)
+    r_lo = torch.where(s > cfg.min_th_fast, s, zero)
+    cell = cfg.cell
+    ph, pw = (-H0) % cell, (-W0) % cell
+    inside = (ys < hs) & (xs < ws)
+    rh = F.pad(torch.where(inside, r_hi, zero), (0, pw, 0, ph))
+    ncy, ncx = (H0 + ph) // cell, (W0 + pw) // cell
+    has_hi = rh.reshape(Lv, ncy, cell, ncx, cell).amax(dim=(2, 4)) > 0.0
+    use_lo = (~has_hi).repeat_interleave(cell, 1).repeat_interleave(cell, 2)[:, :H0, :W0]
+    resp = fast_mod.nonmax_3x3(torch.where(use_lo, r_lo, r_hi))
+    b = cfg.border
+    in_border = (ys >= b) & (ys < hs - b) & (xs >= b) & (xs < ws - b)
+    resp = torch.where(in_border, resp, zero)
+
+    # selection to the largest budget, cut to each level's budget below
+    xy, score, valid = select_mod.select_keypoints(resp, n_per, cell=cfg.cell)
+    n_sel = xy.shape[1]
+    lvl = torch.arange(Lv, device=dev)[:, None].expand(Lv, n_sel)
+
+    # one gather of every keypoint's raw and blurred patch
+    blur = pyr_mod.gaussian_blur(torch.stack(
+        [levels[0]] + [_reflect_padded(lv, H0, W0) for lv in levels[1:]]))
+    both = F.pad(torch.stack([raw, blur]), (PR, PR, PR, PR), mode="replicate")
+    xi = torch.minimum(torch.clamp(xy[..., 0].to(torch.int64), min=0), ws[:, :, 0] - 1)
+    yi = torch.minimum(torch.clamp(xy[..., 1].to(torch.int64), min=0), hs[:, :, 0] - 1)
+    di = torch.arange(PATCH, device=dev)
+    rows = (yi.reshape(-1)[:, None] + di[None, :])[:, :, None]
+    cols = (xi.reshape(-1)[:, None] + di[None, :])[:, None, :]
+    patches = both[:, lvl.reshape(-1)[:, None, None], rows, cols].reshape(2, -1, PATCH * PATCH)
+    if cfg.subpixel:
+        xy = xy + refine_corners_flat(patches[0]).reshape(Lv, n_sel, 2)
+    angles = ic_angle_flat(patches[0])
+    desc = brief_descriptors_flat(patches[1], angles)
+
+    scales = torch.tensor([cfg.scale_factor ** l for l in range(Lv)], dtype=torch.float32,
+                          device=dev)
+    keep = torch.tensor(np.concatenate([np.arange(l * n_sel, l * n_sel + min(budgets[l], n_sel))
+                                        for l in range(Lv)]), dtype=torch.long, device=dev)
+    return Features(
+        xy=(xy * scales[:, None, None]).reshape(-1, 2)[keep],
+        response=score.reshape(-1)[keep],
+        angle=angles[keep],
+        octave=lvl.reshape(-1).to(torch.int32)[keep],
+        descriptors=desc[keep],
+        valid=valid.reshape(-1)[keep],
+    )

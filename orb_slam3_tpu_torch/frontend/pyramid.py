@@ -78,17 +78,19 @@ def _gauss_kernel1d(ksize: int, sigma: float, device):
 
 
 def gaussian_blur(img, ksize: int = 7, sigma: float = 2.0):
-    """Separable Gaussian blur, reflect-101 padding, [H, W] -> [H, W]
+    """Separable Gaussian blur, reflect-101 padding, [..., H, W] -> [..., H, W]
     (cv::GaussianBlur(..., Size(7,7), 2, 2, BORDER_REFLECT_101))."""
     k = _gauss_kernel1d(ksize, sigma, img.device)
     pad = ksize // 2
-    h, w = img.shape
-    x = F.pad(img[None], (0, 0, pad, pad), mode="reflect")[0]
-    acc = k[0] * x[0:h]
+    h, w = img.shape[-2:]
+    lead = img.shape[:-2]
+    img = img.reshape((-1, h, w))
+    x = F.pad(img, (0, 0, pad, pad), mode="reflect")
+    acc = k[0] * x[:, 0:h]
     for i in range(1, ksize):
-        acc = acc + k[i] * x[i:i + h]
-    x = F.pad(acc[None], (pad, pad, 0, 0), mode="reflect")[0]
-    out = k[0] * x[:, 0:w]
+        acc = acc + k[i] * x[:, i:i + h]
+    x = F.pad(acc, (pad, pad, 0, 0), mode="reflect")
+    out = k[0] * x[:, :, 0:w]
     for i in range(1, ksize):
-        out = out + k[i] * x[:, i:i + w]
-    return out
+        out = out + k[i] * x[:, :, i:i + w]
+    return out.reshape(lead + (h, w))

@@ -13,6 +13,14 @@ iteration:
      with two rounds of iterative refinement, then the landmark
      back-substitution.
 
+Steps 1-2 and the back-substitution touch only the landmarks (and their
+edges) a process holds; step 3 is replicated. So one `_schur_solve` serves
+one device and a group of them (`parallel/dist_ba.py`): the landmark
+elimination is rank-local, the reduced camera system and the cost are
+summed over the group by `reduce` (and the damping floor's maximum taken
+over it), and every rank solves the same camera system. `LOCAL` is the
+world of one: the same operations, no communication, the same bits.
+
 The JAX package sums over the landmark axis with [E, L] one-hot matmuls
 (dense work for the TPU's matrix unit; 262 MB of f32 at E = 8000 and
 L = 8192). Here the same sums are `ops.scatter.add_at` over the landmark
@@ -68,6 +76,22 @@ class BAStats(NamedTuple):
     cost: torch.Tensor
     lam: torch.Tensor
     accepted: torch.Tensor
+
+
+class LocalReduce:
+    """The reductions of `_schur_solve` over a world of one: identities."""
+
+    size = 1
+    rank = 0
+
+    def sum(self, tensors):
+        return tensors
+
+    def max(self, t):
+        return t
+
+
+LOCAL = LocalReduce()
 
 
 def inv3x3(M):
@@ -141,9 +165,12 @@ def obs_chi2(p: BAProblem):
     return torch.sum(r * apply_info(p.obs_info, r), dim=-1)
 
 
-def ba_cost(p: BAProblem):
+def ba_cost(p: BAProblem, reduce=LOCAL):
+    """The robust cost of the visual edges (summed over `reduce`'s group)
+    plus the camera-camera factors'."""
     cam_states, X = _gathered(p)
     _, cost, _ = _obs_cost_and_weights(p, vmap(p.residual)(cam_states, X, p.obs_data))
+    cost, = reduce.sum([cost])
     if p.cam_edges:
         cost = cost + total_cost(_cam_only_problem(p))
     return cost
@@ -157,10 +184,12 @@ def _apply_step(p: BAProblem, dc, dl):
                                points=p.points + dl)
 
 
-def _schur_solve(p: BAProblem, lam):
+def _schur_solve(p: BAProblem, lam, reduce=LOCAL):
     """One damped Gauss-Newton step by landmark elimination. Returns
     (dc [K,C], dl [L,3], cost at the linearization point, predicted
-    decrease)."""
+    decrease). Under a group's `reduce`, p holds this rank's landmarks and
+    their edges; dc, the cost and the prediction are the group's, dl this
+    rank's."""
     K, C, L = p.cams.num, p.cams.tangent_dim, p.points.shape[0]
     KC = K * C
     dev = p.points.device
@@ -194,18 +223,14 @@ def _schur_solve(p: BAProblem, lam):
     Hcc_diag = torch.einsum("ek,ecd->kcd", onehot_k, Hcc_e)
     Hcc = torch.einsum("kcd,kj->kcjd", Hcc_diag, torch.eye(K, **f32))
     gc = onehot_k.T @ gc_e
-    if p.cam_edges:
-        Hcam, gcam, cost_cam = dense.assemble_normal_equations(_cam_only_problem(p))
-        Hcc = Hcc + Hcam.reshape(K, C, K, C)
-        gc = gc + gcam.reshape(K, C)
-        cost = cost + cost_cam
 
     # landmark blocks with relative (Marquardt) damping and a floor:
     # absolute damping vanishes in f32 against Hll ~ fx^2 * n_obs
     valid = p.obs_mask
     Hll = add_at(torch.zeros((L, 3, 3), **f32), li, Hll_e, valid)
     dHll = torch.diagonal(Hll, dim1=-2, dim2=-1)
-    floor_l = 1e-6 * torch.clamp(dHll.max(), min=1.0)
+    # the group's maximum, so that every rank damps as one device would
+    floor_l = 1e-6 * torch.clamp(reduce.max(dHll.max()), min=1.0)
     Hll = Hll + torch.diag_embed(lam * dHll + floor_l)
     Hll = torch.where(p.point_fixed[:, None, None], torch.eye(3, **f32), Hll)
     Hll_inv = inv3x3(Hll)
@@ -216,6 +241,15 @@ def _schur_solve(p: BAProblem, lam):
     BW = torch.einsum("lkc,lcd->lkd", B2, Hll_inv)
     S_fill = torch.einsum("lkd,ljd->kj", BW, B2)
     b_fill = torch.einsum("lkd,ld->k", BW, gl)
+
+    # the reduced camera system, summed over the group; from here on every
+    # rank computes the same camera step
+    S_fill, b_fill, Hcc, gc, cost = reduce.sum([S_fill, b_fill, Hcc, gc, cost])
+    if p.cam_edges:
+        Hcam, gcam, cost_cam = dense.assemble_normal_equations(_cam_only_problem(p))
+        Hcc = Hcc + Hcam.reshape(K, C, K, C)
+        gc = gc + gcam.reshape(K, C)
+        cost = cost + cost_cam
 
     m = cam_free[:, None].expand(K, C).reshape(KC)
     S = Hcc.reshape(KC, KC) - S_fill
@@ -232,8 +266,9 @@ def _schur_solve(p: BAProblem, lam):
 
     Hlc_dc = torch.einsum("lkd,k->ld", B2, dc)
     dl = torch.einsum("lab,lb->la", Hll_inv, -gl - Hlc_dc) * lm_free[:, None]
-    pred = 0.5 * (lam * (torch.sum(dS * dc * dc) + torch.sum(dHll * dl * dl))
-                  - (torch.sum(gc.reshape(KC) * m * dc) + torch.sum(gl * dl)))
+    lm_terms, = reduce.sum([torch.stack([torch.sum(dHll * dl * dl), torch.sum(gl * dl)])])
+    pred = 0.5 * (lam * (torch.sum(dS * dc * dc) + lm_terms[0])
+                  - (torch.sum(gc.reshape(KC) * m * dc) + lm_terms[1]))
     return dc.reshape(K, C), dl, cost, pred
 
 
@@ -264,3 +299,25 @@ def solve(p: BAProblem, num_iters: int, lam0: float = 1e-5):
                                 points=torch.where(accept, cand.points, p.points))
         accepted = accepted + accept.to(torch.int64)
     return p, BAStats(cost0=cost0, cost=ba_cost(p), lam=lam, accepted=accepted)
+
+
+def solve_halving(p: BAProblem, num_iters: int, lam0: float = 1e-5, reduce=LOCAL):
+    """LM with the JAX package's distributed schedule (parallel/dist_ba.py):
+    one linearization and one Schur solve per iteration, the step kept when
+    the cost drops (lambda x 0.5, floored at 1e-12), else lambda x 4
+    (capped at 1e10), decided on the device. The global BA of one device
+    and of a group both run this loop. Returns (problem, costs at each
+    linearization point [tensors])."""
+    lam = torch.tensor(lam0, dtype=torch.float32, device=p.points.device)
+    costs = []
+    for _ in range(num_iters):
+        dc, dl, cost, _ = _schur_solve(p, lam, reduce)
+        costs.append(cost)
+        cand = _apply_step(p, dc, dl)
+        accept = ba_cost(cand, reduce) < cost
+        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-12),
+                          torch.clamp(lam * 4.0, max=1e10))
+        state = {k: torch.where(accept, v, p.cams.state[k]) for k, v in cand.cams.state.items()}
+        p = dataclasses.replace(p, cams=dataclasses.replace(p.cams, state=state),
+                                points=torch.where(accept, cand.points, p.points))
+    return p, costs

@@ -15,8 +15,9 @@ the active map's observation graph is flattened on the host
 (`extract_global_problem`) and solved by the Schur-complement LM of
 `lm/schur` with the JAX package's distributed loop (halve lambda on an
 accepted step, quadruple it on a rejected one), in abortable chunks of
-iterations. Sharding the landmark axis over several cards is ROADMAP
-Queue 1 item 16.
+iterations. `parallel/map_ba.distributed_global_ba` shards the landmark
+axis over a process group with the same problem (`map_problem`), loop and
+write-back.
 """
 
 from __future__ import annotations
@@ -62,49 +63,59 @@ def extract_global_problem(s: MapState, scale_factors=None):
     return kf_rows, cam_idx, lm_idx, uv.astype(np.float32), info.astype(np.float32)
 
 
+def map_problem(s: MapState, K8, kind: int, cam_rows, cam_fixed, points, point_fixed,
+                cam_idx, lm_idx, uv, info, mask, huber_delta) -> schur.BAProblem:
+    """The global BA problem over keyframe rows `cam_rows` (tensors or
+    numpy; `cam_fixed` per row) and the landmarks `points` / `point_fixed`
+    with their mono reprojection edges (camera positions in cam_rows,
+    landmark rows in points), on the map's device."""
+    dev = s.device
+    rows = torch.as_tensor(cam_rows, dtype=torch.long, device=dev)
+    E = len(cam_idx)
+    return schur.BAProblem(
+        cams=VertexBlock(state={"R": s.kf_R[rows], "t": s.kf_t[rows]},
+                         fixed=torch.as_tensor(cam_fixed, dtype=torch.bool, device=dev),
+                         tangent_dim=6, retract=lm_edges.se3_retract),
+        points=torch.as_tensor(points, dtype=torch.float32, device=dev),
+        point_fixed=torch.as_tensor(point_fixed, dtype=torch.bool, device=dev),
+        cam_idx=torch.as_tensor(cam_idx, dtype=torch.int32, device=dev),
+        lm_idx=torch.as_tensor(lm_idx, dtype=torch.int32, device=dev),
+        obs_data={"uv": torch.as_tensor(uv, dtype=torch.float32, device=dev),
+                  "K": torch.as_tensor(K8, dtype=torch.float32, device=dev).expand(E, 8)},
+        obs_info=torch.as_tensor(info, dtype=torch.float32, device=dev),
+        obs_mask=torch.as_tensor(mask, dtype=torch.bool, device=dev),
+        cam_edges=(), residual_dim=2, residual=_ba_residual(kind), huber_delta=huber_delta,
+    )
+
+
+def write_back(s: MapState, kf_rows, cams: dict, points) -> MapState:
+    """The solved poses of `kf_rows` (the first len(kf_rows) cameras) and
+    the landmarks [L, 3] (valid rows) into the map."""
+    rows = torch.as_tensor(kf_rows, dtype=torch.long, device=s.device)
+    n = len(kf_rows)
+    kf_R, kf_t = s.kf_R.clone(), s.kf_t.clone()
+    kf_R[rows], kf_t[rows] = cams["R"][:n], cams["t"][:n]
+    return dataclasses.replace(
+        s, kf_R=kf_R, kf_t=kf_t, lm_pos=torch.where(s.lm_valid[:, None], points, s.lm_pos))
+
+
 def global_ba(s: MapState, K8, kind: int = 0, n_fixed: int = 2, num_iters: int = 10,
               huber_delta: float | None = 5.991 ** 0.5, lam0: float = 1e-5) -> MapState:
     """Global BA of the active map (Optimizer::GlobalBundleAdjustemnt,
     `Optimizer.cc:52`): its keyframes (the first n_fixed held) and every
-    valid landmark, mono reprojection edges with Huber. Each iteration is
-    one linearization and one Schur solve; the step is kept when the cost
-    drops (lambda x 0.5), else lambda x 4, decided on the device. Returns
-    the MapState with the new poses and landmarks (unchanged with fewer
-    than 3 keyframes or no observation)."""
+    valid landmark, mono reprojection edges with Huber, solved by
+    `schur.solve_halving` (one linearization and one Schur solve per
+    iteration; the loop `parallel/dist_ba.dist_ba_solve` runs over a
+    group). Returns the MapState with the new poses and landmarks
+    (unchanged with fewer than 3 keyframes or no observation)."""
     kf_rows, cam_idx, lm_idx, uv, info = extract_global_problem(s)
     if len(kf_rows) < 3 or len(cam_idx) == 0:
         return s
-    dev = s.device
-    rows = torch.as_tensor(kf_rows, dtype=torch.long, device=dev)
-    fixed = torch.arange(len(kf_rows), device=dev) < n_fixed
-    E = len(cam_idx)
-    p = schur.BAProblem(
-        cams=VertexBlock(state={"R": s.kf_R[rows], "t": s.kf_t[rows]}, fixed=fixed,
-                         tangent_dim=6, retract=lm_edges.se3_retract),
-        points=s.lm_pos, point_fixed=~s.lm_valid,
-        cam_idx=torch.as_tensor(cam_idx, dtype=torch.int32, device=dev),
-        lm_idx=torch.as_tensor(lm_idx, dtype=torch.int32, device=dev),
-        obs_data={"uv": torch.as_tensor(uv, device=dev),
-                  "K": torch.as_tensor(K8, dtype=torch.float32, device=dev).expand(E, 8)},
-        obs_info=torch.as_tensor(info, device=dev),
-        obs_mask=torch.ones((E,), dtype=torch.bool, device=dev),
-        cam_edges=(), residual_dim=2, residual=_ba_residual(kind), huber_delta=huber_delta,
-    )
-    lam = torch.tensor(lam0, dtype=torch.float32, device=dev)
-    for _ in range(num_iters):
-        dc, dl, cost, _ = schur._schur_solve(p, lam)
-        cand = schur._apply_step(p, dc, dl)
-        accept = schur.ba_cost(cand) < cost
-        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-12),
-                          torch.clamp(lam * 4.0, max=1e10))
-        state = {k: torch.where(accept, v, p.cams.state[k]) for k, v in cand.cams.state.items()}
-        p = dataclasses.replace(p, cams=dataclasses.replace(p.cams, state=state),
-                                points=torch.where(accept, cand.points, p.points))
-    kf_R, kf_t = s.kf_R.clone(), s.kf_t.clone()
-    kf_R[rows], kf_t[rows] = p.cams.state["R"], p.cams.state["t"]
-    return dataclasses.replace(
-        s, kf_R=kf_R, kf_t=kf_t,
-        lm_pos=torch.where(s.lm_valid[:, None], p.points, s.lm_pos))
+    p = map_problem(s, K8, kind, kf_rows, np.arange(len(kf_rows)) < n_fixed, s.lm_pos,
+                    ~s.lm_valid, cam_idx, lm_idx, uv, info, np.ones(len(cam_idx), bool),
+                    huber_delta)
+    p, _ = schur.solve_halving(p, num_iters, lam0)
+    return write_back(s, kf_rows, p.cams.state, p.points)
 
 
 def _ba_residual(kind: int):

@@ -652,6 +652,50 @@ class Tracker:
             self.async_mapper.stop()
             self.async_mapper = None
 
+    def adopt_map(self, s_new: atlas_state.MapState):
+        """Replace the map of a live session from outside: a map shipped in
+        from another host (`parallel/multihost.HostedAtlas.ship_map`) or an
+        atlas loaded into a running tracker (`Tracker.adopt_map`,
+        `tracking/tracker.py:435` of the JAX package). `s_new` keeps this
+        session's rows where they were (ship_map appends), so the
+        bindings the tracker holds stay valid. The frames in flight and the
+        mapper are drained first (they hold rows of the old arena); the
+        per-landmark buffers grow to the new capacity; the mapper is
+        reseeded with the new map and the place-recognition database
+        rebuilt from it (Atlas::PostLoad re-adds every keyframe,
+        `System.cc:1445-1506`)."""
+        self.sync_mapping()
+        if s_new.kmax < self.map.kmax or s_new.lmax < self.map.lmax:
+            raise ValueError("adopt_map cannot shrink the arena under live tracker state")
+        s_new = atlas_state.to_device(s_new, self.device)
+        L_new = s_new.lmax
+        if L_new > self.map.lmax:
+            def pad(a):
+                return torch.cat([a, torch.zeros((L_new - a.shape[0],), dtype=a.dtype,
+                                                 device=a.device)])
+
+            if self._tracked_lms is not None:
+                self._tracked_lms = pad(self._tracked_lms)
+            if self._stat_vis is not None:
+                vis, fnd = self._stats_reduce()
+                self._stat_vis, self._stat_found = [pad(vis)], [pad(fnd)]
+        if s_new.kmax > self.map.kmax and self.loop_closer is not None:
+            old = self.loop_closer  # the database has kmax rows: a new loop closer
+            self.cfg.kmax = s_new.kmax
+            self.attach_loop_closer(old.voc)
+            self.loop_closer.n_loops, self.loop_closer.n_merges = old.n_loops, old.n_merges
+        self.cfg.kmax, self.cfg.lmax = s_new.kmax, s_new.lmax
+        self.map = s_new
+        self._map_version += 1
+        self._vi_prior = None
+        if self.async_mapper is not None:
+            self.async_mapper.set_state(s_new, self.last_kf_row, imu=self.imu)
+            self._mapper_stale = False
+            self._mapper_gauge_version = self.async_mapper._version
+        if self.loop_closer is not None:
+            self.loop_closer.pending = None
+            self.loop_closer.rebuild_db(s_new)
+
     def _stats_reduce(self):
         """The buffered per-frame landmark statistics summed into one [L]
         array each (pairwise, in frame order)."""

@@ -2,7 +2,10 @@
 plain-torch paths around them (the depth frontend, KB8, the inertial
 solvers) on the card against the CPU, on a card; the background mapper's
 stream (K1 / K2 on a side stream, the stage timer's stream-local sync, a
-short session mapping on its own stream).
+short session mapping on its own stream); K2 at the fleet's batch (B = 8)
+and the fleet step (K1 eight times, K2 once, each session equal to its own
+step); an Atlas saved from a card session reloaded exactly; the PNG
+codec's round trip of a card frame; the live viewer on a card session.
 
 Imports neither jax nor the JAX package, so it runs on a machine with
 PyTorch and a CUDA card alone:
@@ -153,10 +156,12 @@ def _k2_case(B, N, stereo, seed, frac_mono=0.5):
 
 # N: cluster sizes 1 (5, 256), 2 (257) and 8 (2048, 2049: a ragged edge),
 # 8192 (the bootstrap's arena: every staged row in use) and 9000 rows, past
-# the 8 x 1024 rows staged in shared memory
+# the 8 x 1024 rows staged in shared memory; B = 8 is the fleet's batch (8
+# clusters of 8 CTAs at N = 2048)
 K2_CASES = [(1, 300, False), (1, 256, True), (1, 2048, False), (4, 2048, True),
             (3, 5, False)] + [(B, N, stereo) for N in (5, 256, 257, 2048, 2049, 8192, 9000)
-                              for B in (1, 4) for stereo in (False, True)]
+                              for B in (1, 4) for stereo in (False, True)] + [
+    (8, 2048, False), (8, 2048, True), (8, 300, False), (8, 9000, False)]
 
 
 @pytest.mark.parametrize("B,N,stereo", K2_CASES)
@@ -999,3 +1004,111 @@ def test_async_session_on_the_card_maps_on_its_own_stream(cuda):
     t0 = time.perf_counter()
     system.shutdown()
     assert time.perf_counter() - t0 < 30.0 and not thread.is_alive()
+
+
+@pytest.fixture(scope="module")
+def card_session():
+    """A 10-frame monocular session at 256x192 on the card (synchronous
+    schedule), shut down."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from orb_slam3_tpu_torch import device, entry
+    from orb_slam3_tpu_torch.frontend import orb
+
+    dev = device.resolve("cuda")
+    small = dict(img_wh=(256, 192), K=(200.0, 200.0, 128.0, 96.0))
+    frames = entry.plane_sequence(10, **small)[0]
+    cfg = entry.tracker_config(dev, orb=orb.OrbConfig(300, 4), kmax=16, lmax=1024,
+                               local_window=4, async_mapping=False, pipeline_depth=1, **small)
+    system = entry.slam(frames, cfg)
+    system.shutdown()
+    return system, frames
+
+
+def test_an_atlas_saved_from_a_card_map_reloads_exactly(cuda, card_session, tmp_path):
+    import dataclasses
+
+    from orb_slam3_tpu_torch.api import checkpoint
+    from orb_slam3_tpu_torch.api.system import System
+
+    system, _ = card_session
+    path = str(tmp_path / "atlas.npz")
+    system.save_atlas(path)
+    s = system.tracker.map
+    assert int(s.kf_valid.sum()) >= 2
+    for dev in (cuda, "cpu"):
+        got, _ = checkpoint.load_atlas(path, device=dev)
+        for f in dataclasses.fields(s):
+            a = getattr(got, f.name)
+            assert a.device.type == torch.device(dev).type
+            assert torch.equal(a.cpu(), getattr(s, f.name).cpu()), f.name
+    resumed = System(config=system.tracker.cfg, atlas_path=path)
+    assert resumed.tracker.map.kf_R.is_cuda and int(resumed.tracker.map.active_map) == 1
+    resumed.shutdown()
+
+
+def test_codec_round_trip_of_a_card_frame(cuda, card_session):
+    from orb_slam3_tpu_torch.utils import png
+
+    _, frames = card_session
+    img = torch.as_tensor(np.asarray(frames[3]), device=cuda).round().clamp(0, 255).to(
+        torch.uint8)
+    for filt in range(5):
+        back = torch.from_numpy(png.decode(png.encode(img.cpu().numpy(), filt))).to(cuda)
+        assert torch.equal(back, img)
+
+
+def test_viewer_reads_a_card_session(cuda, card_session):
+    import json
+    import urllib.request
+
+    from orb_slam3_tpu_torch.utils import png
+
+    system, _ = card_session
+    v = system.start_viewer(port=0)
+    try:
+        base = f"http://127.0.0.1:{v.port}"
+        stats = json.loads(urllib.request.urlopen(base + "/stats.json", timeout=10).read())
+        assert stats["n_keyframes"] >= 2
+        for ep in ("/map.png", "/frame.png"):
+            assert urllib.request.urlopen(base + ep, timeout=30).read()[:8] == png.SIGNATURE
+    finally:
+        system.shutdown()
+
+
+def test_the_fleet_step_launches_k2_once_over_eight_sessions(cuda):
+    """The fleet at B = 8 (tests/test_fleet.py's sizes, local maps seeded
+    from each frame's keypoints): K1 launched 8 times and K2 once, each
+    session's (R, t, n) equal to its own step on the card."""
+    from orb_slam3_tpu_torch import entry
+    from orb_slam3_tpu_torch.frontend import camera as cam
+    from orb_slam3_tpu_torch.frontend import orb
+    from orb_slam3_tpu_torch.parallel import fleet
+
+    B, H, W, L = 8, 128, 192, 256
+    K = np.asarray([120.0, 120.0, 96.0, 64.0, 0, 0, 0, 0], np.float32)
+    cfg = orb.OrbConfig(200, 2)
+    cols = [[] for _ in range(9)]
+    for b in range(B):
+        img = entry.blob_frame(H, W, seed=b)
+        f = orb.extract(torch.from_numpy(img), cfg)
+        sc = entry.make_scene(f.xy.numpy(), f.octave.numpy(), f.descriptors.numpy(),
+                              f.valid.numpy(), K, 2, L, seed=b)
+        for i, a in enumerate([img] + [sc[k] for k in (
+                "lm_pos", "lm_desc", "lm_valid", "lm_max_dist", "lm_min_dist", "lm_normal",
+                "R0", "t0")]):
+            cols[i].append(a)
+    args = [torch.as_tensor(np.stack(c), device=cuda) for c in cols]
+    step = fleet.make_fleet_step(cfg, K, img_wh=(W, H))
+    k1, k2 = mk.launches, pk.launches
+    R, t, n = step(*args)
+    torch.cuda.synchronize()
+    assert (mk.launches - k1, pk.launches - k2) == (8, 1)
+    Kt = torch.as_tensor(K, device=cuda)
+    for b in range(B):
+        Rb, tb, nb = fleet._track_one(*(a[b] for a in args), cfg_orb=cfg, kind=cam.PINHOLE, K=Kt,
+                                      img_wh=(float(W), float(H)),
+                                      scale_factors=cfg.scale_factors(cuda), match_radius=15.0)
+        assert int(nb) == int(n[b]) >= 50
+        torch.testing.assert_close(R[b], Rb, rtol=0, atol=1e-5)
+        torch.testing.assert_close(t[b], tb, rtol=0, atol=1e-4)

@@ -19,6 +19,13 @@
 - Settings files are read without PyYAML or OpenCV.
 - The port's copy of the ORB pattern equals the JAX package's asset, and
   atlas/invariants.py is the port's own module.
+- No module of the port, and not chip_smoke.py, imports cv2 (a CUDA host
+  need not have OpenCV); the parallel layers, the checkpoint, viz, viewer
+  and dataset modules, the codec, the frame loader and the drivers import
+  neither jax nor the JAX package.
+- Loading an Atlas, the fleet step, the distributed global BA,
+  init_distributed and the dataset drivers default to CUDA and raise
+  where there is none.
 """
 
 import ast
@@ -269,3 +276,58 @@ def test_runtime_imports_no_jax_and_the_defaults_map_in_the_background(monkeypat
     assert m._thread.is_alive() and m._thread.daemon and m._stream is None
     s.shutdown()
     assert tr.async_mapper is None and not m._thread.is_alive()
+
+
+def test_no_module_of_the_port_imports_cv2():
+    """A CUDA host need not have OpenCV: the package and chip_smoke.py decode
+    and encode images with utils/png.py."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = [f.relative_to(ROOT).as_posix() for f in files if "cv2" in set(_imported_roots(f))]
+    assert not bad, bad
+
+
+def test_parallel_and_the_new_api_modules_import_no_jax():
+    files = sorted((PKG / "parallel").glob("*.py")) + [
+        PKG / rel for rel in ("api/checkpoint.py", "api/viz.py", "api/viewer.py",
+                              "api/datasets.py", "utils/png.py", "utils/frameloader.py",
+                              "drivers.py")]
+    assert {f.name for f in (PKG / "parallel").glob("*.py")} == {
+        "__init__.py", "dist_ba.py", "map_ba.py", "multihost.py", "fleet.py"}
+    for f in files:
+        roots = set(_imported_roots(f))
+        assert not roots & (set(FORBIDDEN) | {"cv2"}), (f.name, roots)
+
+
+def test_resume_fleet_gba_and_drivers_default_to_cuda_and_raise_without_it(monkeypatch,
+                                                                          tmp_path):
+    from orb_slam3_tpu_torch import drivers
+    from orb_slam3_tpu_torch.api import checkpoint as tck
+    from orb_slam3_tpu_torch.api import system as tsystem
+    from orb_slam3_tpu_torch.frontend import orb as torb
+    from orb_slam3_tpu_torch.parallel import fleet, map_ba, multihost
+
+    K = np.asarray([40.0, 40.0, 32.0, 24.0, 0, 0, 0, 0], np.float32)
+    cpu_cfg = tentry.tracker_config("cpu", img_wh=(64, 48), kmax=4, lmax=32)
+    s = ttracker.empty_map(cpu_cfg, device="cpu")
+    path = str(tmp_path / "atlas.npz")
+    tck.save_atlas(path, s)
+    root = str(tmp_path / "seq")
+    tentry.write_euroc_folder(root, [np.zeros((48, 64), np.float32)] * 2)
+    yaml = tmp_path / "cam.yaml"
+    yaml.write_text(tentry.pinhole_settings(K, (64, 48), n_features=100, n_levels=2))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (
+            lambda: tck.load_atlas(path),
+            lambda: tsystem.System(config=ttracker.TrackerConfig(K=K, img_wh=(64, 48), kmax=4,
+                                                                 lmax=32), atlas_path=path),
+            lambda: fleet.make_fleet_step(torb.OrbConfig(100, 2), K),
+            lambda: map_ba.distributed_global_ba(s, K),
+            lambda: multihost.init_distributed("127.0.0.1:1", 1, 0),
+            lambda: drivers.run_euroc(root, str(yaml), log=lambda *a: None),
+            lambda: drivers.main(["euroc", root, str(yaml), "--out", str(tmp_path / "t.txt")])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # with the CPU named, the resumed System loads onto it
+    r = tsystem.System(config=cpu_cfg, atlas_path=path)
+    assert r.tracker.map.kf_R.device.type == "cpu" and int(r.tracker.map.active_map) == 1
+    r.shutdown()
