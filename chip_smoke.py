@@ -203,7 +203,27 @@ Phases; any failure exits non-zero without the final `ok` line:
      fleet step's ms against 8 sequential steps, K2's ms, device ms, plain
      ms and bound at B = 8; extract_batched against extract at full width
      (every valid keypoint equal) with the ms and CUDA kernels of both.
-Phases 6-15 print one JSON line with each kernel's bound and launches by
+ 16. the reference's operating regime at full width (752x480, 1000
+     features on 8 levels, RGB-D, th_depth 20), each session with the launch
+     counters zeroed just before it: scale-full
+     (tests/test_reference_scale.py's session: the room ray-cast on the
+     card, seed 21, 420 frames of 2.3 turns at 0.1 s, frames 180-186 blank,
+     bf 45, kmax 64, lmax 8192, window 6, kf_max_frames 2, the deterministic
+     schedule, a vocabulary trained in the run on 4 held-out views: >= 2
+     maps, >= 1 merge, one map id at the end, >= 100 keyframes, kmax > 64,
+     unscaled keyframe ATE < 0.30, the median of the last 100 frame times <
+     4 x the median of frames 40-140 + 0.05 s, the Atlas invariants) and
+     churn-full (tests/test_compaction.py's churn: PlaneScene seed 11, 60
+     frames, bf 35, kmax 16, lmax 2048, window 5, a keyframe every frame,
+     synchronous: >= 80% tracked, unscaled ATE < 0.15, the invariants, n_kf
+     < 60); the frames at which the arena compacted and grew, the Atlas
+     gained a map, a loop closed and the maps merged; K1 at the largest N of
+     its tracking, fuse and merge sites exactly equal to its plain version,
+     K2's stereo template at the call with the most valid rows within R 1e-5
+     / t 1e-4; System.run_global_ba on the unified map; the per-frame
+     medians, the stages, each essential-graph solve and the kernels'
+     times at those shapes.
+Phases 6-16 print one JSON line with each kernel's bound and launches by
 path and call site; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -3961,6 +3981,361 @@ def phase_parallel(dev, gpu, resumed_map, K8):
                k2_fleet=k2_fleet)
     return out
 
+# ---------------------------------------------------------------- phase 16
+# tests/test_reference_scale.py's session (the room, seed 21, 420 frames of
+# 2.3 turns, frames 180-186 blank) and tests/test_compaction.py's churn
+# (PlaneScene seed 11, 60 frames, a keyframe every frame, kmax 16)
+SCALE_FRAMES, SCALE_TURNS, SCALE_BLACKOUT, SCALE_BLANK = 420, 2.3, 180, 7
+CHURN_FRAMES = 60
+
+
+def scale_cells(dev):
+    """(name, frames, R_gt, t_gt, cfg, vocabulary views, timestamps) of
+    phase 16's two cells at full width (752x480, FULL_K, OrbConfig(1000, 8),
+    RGB-D, th_depth 20). scale-full: the room ray-cast on the card (seed 21),
+    loop_trajectory(420, radius 1.6, 2.3 turns), frames 180-186 a zero image
+    with unit depth, timestamps i * 0.1, bf 45, kmax 64, lmax 8192, window 6,
+    kf_max_frames 2, the deterministic schedule (the mapper stepped inline);
+    the vocabulary's 4 held-out views of a circle of radius 1.0. churn-full:
+    PlaneScene seed 11 as a QuadScene, orbit_trajectory(60, advance 0.02),
+    timestamps i * 0.05, bf 35, kmax 16, lmax 2048, window 5, kf_max_frames
+    1, synchronous. Frames are rendered as the session consumes them."""
+    import numpy as np
+
+    from orb_slam3_tpu_torch import entry
+
+    K, wh = entry.FULL_K, entry.FULL_WH
+    blank = (np.zeros((wh[1], wh[0]), np.float32), np.ones((wh[1], wh[0]), np.float32))
+    room = entry.room_scene(np.array(K), img_wh=wh, seed=21, device=dev)
+    R, t = entry.loop_trajectory(SCALE_FRAMES, radius=1.6, loops=SCALE_TURNS)
+    Rv, tv = entry.loop_trajectory(4, radius=1.0, start_angle=0.4)
+
+    def room_frames():
+        for i in range(SCALE_FRAMES):
+            blackout = SCALE_BLACKOUT <= i < SCALE_BLACKOUT + SCALE_BLANK
+            yield blank if blackout else room.render_with_depth(R[i], t[i])
+
+    cfg = entry.tracker_config(dev, sensor="rgbd", bf=450.0 * 0.1, th_depth=20.0, kmax=64,
+                               lmax=8192, local_window=6, kf_max_frames=2,
+                               deterministic_mapping=True)
+    out = [("scale-full", room_frames(), R, t, cfg,
+            [room.render(Rv[i], tv[i]) for i in range(4)],
+            [i * 0.1 for i in range(SCALE_FRAMES)])]
+    planes = entry.QuadScene(K, wh, entry.plane_quads(entry.plane_scene(11)), device=dev)
+    Rc, tc = entry.orbit_trajectory(CHURN_FRAMES, advance=0.02)
+    cfg = entry.tracker_config(dev, sensor="rgbd", bf=35.0, th_depth=20.0, kmax=16, lmax=2048,
+                               local_window=5, kf_max_frames=1, **SYNC)
+    out.append(("churn-full", (planes.render_with_depth(Rc[i], tc[i])
+                               for i in range(CHURN_FRAMES)), Rc, tc, cfg, None, None))
+    return out
+
+
+def run_scale_cell(dev, name, frames, cfg, views, timestamps):
+    """One phase-16 session through entry.slam -> System.track_rgbd, the
+    launch counters zeroed just before it. Records each frame's host time
+    (the device synchronised around it); the frames at which
+    the arena compacted and grew (with kmax / lmax), the Atlas gained a map,
+    a loop closed and the maps merged; K1's launches at the fuse and merge
+    sites and the inputs of its call at the largest N of each site; K2's
+    launches at the relocalization site and the stereo call with the most
+    valid rows; each essential-graph solve's ms and size."""
+    import contextlib
+
+    import torch
+
+    from orb_slam3_tpu_torch import entry
+    from orb_slam3_tpu_torch.atlas import ops as atlas_ops
+    from orb_slam3_tpu_torch.frontend import match_kernel as mk
+    from orb_slam3_tpu_torch.graphopt import essential
+    from orb_slam3_tpu_torch.mapping import fuse
+    from orb_slam3_tpu_torch.tracking import pose_kernel as pk
+    from orb_slam3_tpu_torch.tracking import tracker
+    from orb_slam3_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    voc = None
+    if views is not None:
+        t0 = time.perf_counter()
+        voc = entry.train_vocabulary(views, cfg)
+        print(f"[scale {name}] vocabulary trained in {time.perf_counter() - t0:.1f} s "
+              f"({voc.n_words} words)")
+    rec = {"frames": [], "events": [], "k1": {}, "k2": [], "essential": [], "reloc": [], "sites": {"K1 fuse": 0, "K1 merge": 0, "K2 reloc": 0}, "site": None}
+    o = dict(k1=mk.search_by_projection_kernel, k2=pk.pose_ba, fuse=fuse.fuse_into_keyframe,
+             merge=fuse.merge_duplicates_at_keyframe, reloc=tracker.Tracker._try_relocalize,
+             compact=atlas_ops.compact, grow=atlas_ops.grow,
+             eg=essential.optimize_essential_graph, stage=GLOBAL_TIMER.stage)
+
+    def event(kind, **kw):
+        rec["events"].append(dict(kind=kind, frame=len(rec["frames"]), **kw))
+
+    def k1_rec(*a, **kw):
+        site = rec["site"] or "track"
+        best = rec["k1"].get(site)
+        if best is None or a[0].shape[0] >= best[0]:
+            rec["k1"][site] = (a[0].shape[0], a, kw)
+        return o["k1"](*a, **kw)
+
+    def k2_rec(*a, **kw):
+        if kw.get("ur") is not None:  # the stereo template (RGB-D tracking)
+            rec["k2"].append((a[6].sum(), a, kw))
+        return o["k2"](*a, **kw)
+
+    def at_site(site, fn, counter, mod):
+        def wrapped(*a, **kw):
+            prev, rec["site"] = rec["site"], site
+            n0 = mod.launches
+            try:
+                return fn(*a, **kw)
+            finally:
+                rec["sites"][counter] += mod.launches - n0
+                rec["site"] = prev
+        return wrapped
+
+    def reloc_rec(self, feats):
+        ok = at_site("reloc", o["reloc"], "K2 reloc", pk)(self, feats)
+        rec["reloc"].append((len(rec["frames"]), ok))
+        return ok
+
+    def compact_rec(s):
+        out = o["compact"](s)
+        event("compact", kmax=s.kmax, lmax=s.lmax)
+        return out
+
+    def grow_rec(s, kmax=None, lmax=None):
+        event("grow", kmax=kmax or s.kmax, lmax=lmax or s.lmax)
+        return o["grow"](s, kmax=kmax, lmax=lmax)
+
+    def eg_rec(*a, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = o["eg"](*a, **kw)
+        torch.cuda.synchronize()
+        rec["essential"].append(dict(ms=(time.perf_counter() - t1) * 1e3, K=a[0].shape[0],
+                                     edges=int(a[4].shape[0]), frame=len(rec["frames"])))
+        return out
+
+    last = {"maps": 1, "loops": 0, "merges": 0}
+
+    def after_frame(sys_):
+        tr = sys_.tracker
+        now = {"maps": int(tr.map.n_maps),
+               "loops": tr.loop_closer.n_loops if tr.loop_closer else 0,
+               "merges": tr.loop_closer.n_merges if tr.loop_closer else 0}
+        for k, kind in (("maps", "new map"), ("loops", "loop"), ("merges", "merge")):
+            if now[k] > last[k]:
+                rec["events"].append(dict(kind=kind, frame=len(rec["frames"]) - 1,
+                                          n_kf=int(tr.map.kf_valid.sum())))
+        last.update(now)
+        return False
+
+    def frame_timer(_name):
+        @contextlib.contextmanager
+        def part():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            rec["frames"].append(time.perf_counter() - t1)
+        return part()
+
+    GLOBAL_TIMER.reset()
+    mk.search_by_projection_kernel, pk.pose_ba = k1_rec, k2_rec
+    GLOBAL_TIMER.stage = lambda stage_name: GLOBAL_TIMER.stage_sync(stage_name, dev)
+    fuse.fuse_into_keyframe = at_site("fuse", o["fuse"], "K1 fuse", mk)
+    fuse.merge_duplicates_at_keyframe = at_site("merge", o["merge"], "K1 merge", mk)
+    tracker.Tracker._try_relocalize = reloc_rec
+    atlas_ops.compact, atlas_ops.grow = compact_rec, grow_rec
+    essential.optimize_essential_graph = eg_rec
+    try:
+        mk.launches = pk.launches = 0
+        mk.launches_by_thread.clear()
+        pk.launches_by_thread.clear()
+        t0 = time.perf_counter()
+        system = entry.slam(frames, cfg, vocabulary=voc, timer=frame_timer, until=after_frame,
+                            timestamps=timestamps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K1": mk.launches, "K2": pk.launches, **rec["sites"]}
+    finally:
+        mk.search_by_projection_kernel, pk.pose_ba = o["k1"], o["k2"]
+        fuse.fuse_into_keyframe, fuse.merge_duplicates_at_keyframe = o["fuse"], o["merge"]
+        tracker.Tracker._try_relocalize = o["reloc"]
+        atlas_ops.compact, atlas_ops.grow = o["compact"], o["grow"]
+        essential.optimize_essential_graph = o["eg"]
+        GLOBAL_TIMER.stage = o["stage"]
+    print(f"[scale {name}] main path (entry.slam -> System.track_rgbd, {len(rec['frames'])} "
+          f"frames, {'deterministic' if cfg.deterministic_mapping else 'synchronous'} "
+          f"schedule): {wall:.2f} s; launches {launches}; relocalization attempts (frame, "
+          f"ok) {rec['reloc']}")
+    return dict(system=system, rec=rec, launches=launches, wall_s=wall,
+                samples={k: list(v) for k, v in GLOBAL_TIMER.samples.items()})
+
+
+def scale_gates(name, run, R_gt, t_gt):
+    """The gates of tests/test_reference_scale.py::test_reference_scale_session
+    (scale-full) or tests/test_compaction.py::
+    test_e2e_churn_compacts_and_grows (churn-full). Returns (failed,
+    summary)."""
+    import numpy as np
+
+    from orb_slam3_tpu_torch.api import evaluate
+    from orb_slam3_tpu_torch.atlas import invariants
+
+    tr, rec = run["system"].tracker, run["rec"]
+    s = tr.map
+    kv = s.kf_valid.cpu().numpy()
+    frame_s = rec["frames"]
+    violations = invariants.check_all(s)
+    ev = rec["events"]
+    summary = dict(frames=len(frame_s), n_kf=int(kv.sum()), n_kf_alloc=int(s.n_kf),
+                   kmax=s.kmax, lmax=s.lmax, n_lm=int(s.lm_valid.sum()),
+                   compactions=[e["frame"] for e in ev if e["kind"] == "compact"],
+                   growths=[(e["frame"], e["kmax"], e["lmax"]) for e in ev
+                            if e["kind"] == "grow"],
+                   new_maps=[e["frame"] for e in ev if e["kind"] == "new map"],
+                   loops=[e["frame"] for e in ev if e["kind"] == "loop"],
+                   merges=[(e["frame"], e["n_kf"]) for e in ev if e["kind"] == "merge"],
+                   violations=violations)
+    if name == "scale-full":
+        n = len(R_gt)
+        ids = s.kf_map_id.cpu().numpy()[kv]
+        kc = evaluate.camera_centers(s.kf_R.cpu().numpy()[kv], s.kf_t.cpu().numpy()[kv])
+        kts = s.kf_timestamp.cpu().numpy()[kv]
+        fr = np.clip((kts / 0.1 + 0.5).astype(int), 0, n - 1)
+        gtc = evaluate.camera_centers(R_gt[fr], t_gt[fr])
+        ate = evaluate.ate_rmse(kts, kc, kts, gtc, with_scale=False)[0]
+        early, late = np.median(frame_s[40:140]), np.median(frame_s[-100:])
+        summary.update(n_maps=int(s.n_maps), n_merges=tr.loop_closer.n_merges,
+                       n_loops=tr.loop_closer.n_loops, map_ids=sorted(set(ids.tolist())),
+                       ate=float(ate), early_median_s=float(early), late_median_s=float(late))
+        conds = [(int(s.n_maps) >= 2, "the blackout never spawned a second map"),
+                 (tr.loop_closer.n_merges >= 1, "the maps never merged after the loss"),
+                 (len(summary["map_ids"]) == 1, f"atlas not unified: maps {summary['map_ids']}"),
+                 (summary["n_kf"] >= 100, f"only {summary['n_kf']} keyframes"),
+                 (s.kmax > 64, "the arena never grew"),
+                 (ate < 0.30, f"reference-scale ATE {ate:.4f}"),
+                 (late < 4.0 * early + 0.05,
+                  f"per-frame cost grew: early {early:.4f} s, late {late:.4f} s"),
+                 (not violations, f"invariants: {violations[:3]}")]
+    else:
+        ts, R, tt, ok = tr.poses()
+        n = len(R_gt)
+        est = evaluate.camera_centers(R[ok], tt[ok])
+        gt = evaluate.camera_centers(R_gt[:len(ok)][ok], t_gt[:len(ok)][ok])
+        ate = evaluate.ate_rmse(ts[ok], est, ts[ok], gt, with_scale=False)[0]
+        summary.update(tracked=int(ok.sum()), ate=float(ate))
+        conds = [(ok.sum() >= 0.8 * n, f"tracked {int(ok.sum())}/{n}"),
+                 (ate < 0.15, f"churn ATE {ate:.4f}"),
+                 (not violations, f"invariants: {violations[:3]}"),
+                 (int(s.n_kf) < 60, f"n_kf {int(s.n_kf)}: the arena never cycled")]
+    failed = [f"{name}: {msg}" for cond, msg in conds if not cond]
+    for msg in failed:
+        print(f"[scale] GATE FAILED: {msg}")
+    print(f"[scale {name}] " + ", ".join(f"{k} {v}" for k, v in summary.items()
+                                       if k != "violations"))
+    return failed, summary
+
+
+def phase_scale(dev, gpu):
+    """Phase 16: the reference's operating regime at full width (scale-full,
+    churn-full) with the gates of their tests, the frames at which the
+    arena compacted and grew, the Atlas gained a map and the maps merged;
+    K1 at the largest N of its tracking, fuse and merge sites exactly equal
+    to its plain version, K2's stereo template at the session's most valid
+    rows within R 1e-5 / t 1e-4; System.run_global_ba on the unified map;
+    the per-frame medians and each kernel's times at those shapes."""
+    import statistics
+
+    import torch
+
+    from orb_slam3_tpu_torch.frontend import match_kernel as mk
+    from orb_slam3_tpu_torch.tracking import pose_kernel as pk
+
+    med = lambda v: statistics.median(v) if v else None  # noqa: E731
+    failed, out, runs = [], {"cells": {}}, {}
+    errs = {"K1": 0.0, "K2": 0.0}
+    rows = {}
+    for name, frames, R_gt, t_gt, cfg, views, timestamps in scale_cells(dev):
+        t_c = time.perf_counter()
+        run = runs[name] = run_scale_cell(dev, name, frames, cfg, views, timestamps)
+        f, summary = scale_gates(name, run, R_gt, t_gt)
+        failed += f
+        tr, rec, smp = run["system"].tracker, run["rec"], run["samples"]
+        m = tr.async_mapper
+        gba = tr.gba if tr.gba is not None else (m.gba if m is not None else None)
+        if gba is not None:
+            t1 = time.perf_counter()
+            gba.join(timeout=600)
+            summary["background_gba_wait_s"] = time.perf_counter() - t1
+            check(not gba.failed, f"{name}: the background global BA failed: {gba.error}")
+        print(f"[scale {name}] background global BA at the end: "
+              f"{'waited %.1f s' % summary['background_gba_wait_s'] if gba else 'none'}")
+        fr = rec["frames"]
+        summary.update(
+            wall_s=run["wall_s"], launches=run["launches"],
+            frame_ms=med([x * 1e3 for x in fr]),
+            essential_graph=rec["essential"],
+            stages={k: med(smp.get(k, [])) for k in (
+                "orb_extraction", "track.stereo_depth", "track.fused_step", "map.pre",
+                "map.local_ba", "map.culling", "map.loop_detect", "loop.query", "loop.cascade")})
+        for k in ("K1", "K2"):
+            check(run["launches"][k] >= 1, f"{name}: {k} never launched")
+        # K1 at the largest N of each site, exactly equal to plain
+        for site, (N, a1, kw1) in sorted(rec["k1"].items()):
+            err, n_ok = compare_k1(mk.search_by_projection_kernel(*a1, **kw1),
+                                   mk.search_by_projection_plain(*a1, **kw1))
+            errs["K1"] = max(errs["K1"], err)
+            summary[f"k1_{site}_max_N"] = int(N)
+            print(f"[scale {name}] {gpu}: K1 at the {site} site's largest N == plain (N={N}, "
+                  f"M={a1[4].shape[0]}, {int(a1[3].sum())} projected, {n_ok} matched)")
+        # K2's stereo template at the call with the most valid rows
+        nv = torch.stack([x[0] for x in rec["k2"]]).cpu()
+        _, a2, kw2 = rec["k2"][int(torch.argmax(nv))]
+        err = compare_k2(pk.pose_ba(*a2, **kw2), pk.pose_ba_plain(*a2, **kw2),
+                         f"{name} stereo template at the most valid rows")
+        errs["K2"] = max(errs["K2"], err)
+        summary["k2_max_valid_rows"] = int(nv.max())
+        print(f"[scale {name}] {gpu}: K2's stereo template at the most valid rows vs plain "
+              f"(N={a2[3].shape[1]}, {int(nv.max())} valid rows): max |err| {err:.3g}")
+        if name == "scale-full":
+            big = max(rec["k1"].values(), key=lambda x: x[0])
+            rows["K1_scale"] = (big, "match_kernel")
+            rows["K2_scale"] = ((a2[3].shape[1], a2, kw2), "pose_kernel")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run["system"].run_global_ba()
+            torch.cuda.synchronize()
+            summary["run_global_ba_ms"] = (time.perf_counter() - t1) * 1e3
+            summary["run_global_ba_keyframes"] = int(tr.map.kf_valid.sum())
+        print(f"[scale timing] {gpu}: {name}: a frame median {summary['frame_ms']} ms; early "
+              f"(frames 40-140) {summary.get('early_median_s')} s, late (last 100) "
+              f"{summary.get('late_median_s')} s; stage medians {summary['stages']}; essential "
+              f"graph solves {rec['essential']}; run_global_ba "
+              f"{summary.get('run_global_ba_ms')} ms over "
+              f"{summary.get('run_global_ba_keyframes')} keyframes")
+        run["system"].shutdown()
+        out["cells"][name] = summary
+        print(f"[scale {name}] cell with its gates: {time.perf_counter() - t_c:.1f} s")
+    for kname, ((N, a, kw), prof_name) in rows.items():
+        if kname.startswith("K1"):
+            fn = lambda: mk.search_by_projection_kernel(*a, **kw)  # noqa: E731
+            plain = lambda: mk.search_by_projection_plain(*a, **kw)  # noqa: E731
+            b_ms, b_by = bound_ms(*k1_bound(a))
+        else:
+            fn = lambda: pk.pose_ba(*a, **kw)  # noqa: E731
+            plain = lambda: pk.pose_ba_plain(*a, **kw)  # noqa: E731
+            b_ms, b_by = bound_ms(*k2_bound(a, kw))
+        dev_ms, dev_by = device_kernel_ms(fn, prof_name)
+        rows[kname] = dict(N=int(N), ms=time_ms(fn, runs=20), device_ms=dev_ms,
+                           device_ms_by=dev_by, plain_ms=time_ms(plain, runs=3, warmup=1),
+                           bound_ms=b_ms, bound_by=b_by)
+        print(f"[scale timing] {gpu}: {kname} (N={N}): {rows[kname]['ms']:.4f} ms per call, "
+              f"device {dev_ms:.5f} ms ({dev_by}), plain {rows[kname]['plain_ms']:.3f} ms, "
+              f"bound {b_ms:.6f} ms ({b_by})")
+    launches = {k: sum(r["launches"].get(k, 0) for r in runs.values())
+                for k in ("K1", "K2", "K1 fuse", "K1 merge", "K2 reloc")}
+    out.update(failed=failed, launches=launches, call_sites=rows, err=errs)
+    return out
+
 
 def main():
     import torch
@@ -4022,6 +4397,9 @@ def main():
     par = phase_parallel(dev, gpu, resumed_map, K8)
     print(f"[phase] phase 15 took {time.perf_counter() - t15:.1f} s; phases 14-15 "
           f"{time.perf_counter() - t14:.1f} s")
+    t16 = time.perf_counter()
+    scale = phase_scale(dev, gpu)
+    print(f"[phase] phase 16 took {time.perf_counter() - t16:.1f} s")
     # each kernel's row: its launches on the five main paths (and by call
     # site), the bootstrap's numbers at N = lmax, K1's at the fuse, the
     # depth sessions' and the settings sessions' call sites
@@ -4037,13 +4415,14 @@ def main():
                                    "slam-vi": vi["launches"][name],
                                    "slam-async": asy["launches"][name],
                                    "io (EuRoC driver, resume)": io["launches"][name],
-                                   "parallel (fleet)": par["launches"][name]}
+                                   "parallel (fleet)": par["launches"][name],
+                                   "scale (scale-full, churn-full)": scale["launches"][name]}
         row["launches"] = sum(row["launches_by_path"].values())
         row["max_abs_err"] = row["max_err"] = max(row["max_abs_err"], boot["err"][name],
                                                   depth["err"][name], settings["err"][name],
                                                   loop["err"][name], vi["err"][name],
                                                   asy["err"][name], io["err"][name],
-                                                  par["err"][name])
+                                                  par["err"][name], scale["err"][name])
         row["bootstrap"] = b
     k1, k2 = report["kernels"]
     # phase 13's fuse runs on the mapper thread (its launches counted per
@@ -4051,9 +4430,10 @@ def main():
     async_fuse_k1 = asy["launches"]["K1 fuse"]
     fuse_k1 = (slam["fuse_k1"] + depth["launches"]["K1 fuse"] + settings["launches"]["K1 fuse"]
                + loop["launches"]["K1 fuse"] + vi["launches"]["K1 fuse"] + async_fuse_k1
-               + io["launches"]["K1 fuse"])
+               + io["launches"]["K1 fuse"] + scale["launches"]["K1 fuse"])
     right_k1 = settings["launches"]["K1 right"]
-    merge_k1 = loop["launches"]["K1 merge"] + io["launches"]["K1 merge"]
+    merge_k1 = (loop["launches"]["K1 merge"] + io["launches"]["K1 merge"]
+                + scale["launches"]["K1 merge"])
     k1["launches_by_site"] = {
         "track (match_local_map)": k1["launches"] - fuse_k1 - depth["launches"]["K1 vo"]
         - right_k1 - merge_k1,
@@ -4069,9 +4449,11 @@ def main():
     k1["vo"] = depth["call_sites"]["K1_vo"]
     k1["right_camera"] = settings["call_sites"]["K1_right"]
     k2["launches_by_site"] = {"stereo template (depth tracking)": depth["launches"]["K2_stereo"]
-                              + settings["launches"]["K2_stereo"],
+                              + settings["launches"]["K2_stereo"] + scale["launches"]["K2"]
+                              - scale["launches"]["K2 reloc"],
                               "mono over map + VO rows": depth["launches"]["K2 loc"],
-                              "relocalization (after MLPnP)": loop["launches"]["K2 reloc"],
+                              "relocalization (after MLPnP)": loop["launches"]["K2 reloc"]
+                              + scale["launches"]["K2 reloc"],
                               "of which inertial tracking (after the IMU init)":
                               vi["launches"]["K2 inertial"]}
     k1["merge"] = loop["call_sites"]["K1_merge"]
@@ -4092,6 +4474,14 @@ def main():
     k2["launches_by_site"]["of which the EuRoC driver and the resumed session (phase 14)"] = \
         io["launches"]["K2"]
     k2["launches_by_site"]["fleet (B = 8, once per fleet step)"] = par["launches"]["K2"]
+    for k, kn in ((k1, "K1"), (k2, "K2")):
+        k["launches_by_site"]["of which phase 16 (scale-full, churn-full)"] = \
+            scale["launches"][kn]
+        k["scale"] = scale["call_sites"].get(f"{kn}_scale")
+    k1["launches_by_site"]["of which the fuse in phase 16"] = scale["launches"]["K1 fuse"]
+    k1["launches_by_site"]["of which the merge in phase 16"] = scale["launches"]["K1 merge"]
+    k2["launches_by_site"]["of which the relocalization in phase 16"] = \
+        scale["launches"]["K2 reloc"]
     report["bootstrap"] = {k: v for k, v in boot.items() if k != "kernels"}
     report["slam"] = {k: v for k, v in slam.items() if k != "k1_fuse"}
     report["slam_depth"] = {k: v for k, v in depth.items() if k != "call_sites"}
@@ -4101,9 +4491,11 @@ def main():
     report["slam_async"] = asy
     report["io"] = io
     report["parallel"] = par
+    report["scale"] = {k: v for k, v in scale.items() if k != "call_sites"}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     failed = (boot["failed"] + slam["failed"] + depth["failed"] + settings["failed"]
-              + loop["failed"] + vi["failed"] + asy["failed"] + io["failed"] + par["failed"])
+              + loop["failed"] + vi["failed"] + asy["failed"] + io["failed"] + par["failed"]
+              + scale["failed"])
     if failed:
         print(json.dumps(report, default=str))
         raise SmokeFailure(f"gates failed: {failed}")

@@ -5,7 +5,8 @@ stream (K1 / K2 on a side stream, the stage timer's stream-local sync, a
 short session mapping on its own stream); K2 at the fleet's batch (B = 8)
 and the fleet step (K1 eight times, K2 once, each session equal to its own
 step); an Atlas saved from a card session reloaded exactly; the PNG
-codec's round trip of a card frame; the live viewer on a card session.
+codec's round trip of a card frame; the live viewer on a card session; an
+arena grown mid-session handed to the mapper on its own stream.
 
 Imports neither jax nor the JAX package, so it runs on a machine with
 PyTorch and a CUDA card alone:
@@ -54,7 +55,10 @@ def _k1_case(seed, N, M):
             (uv, po, pd, pv, kp, ko, kd, kv, radius)]
 
 
-@pytest.mark.parametrize("N,M", [(300, 250), (2048, 1000), (37, 2100), (8192, 1000)])
+# N = 16384: the fuse and merge sites once the arena has grown (the largest
+# lmax chip_smoke.py phase 16's scale-full reaches)
+@pytest.mark.parametrize("N,M", [(300, 250), (2048, 1000), (37, 2100), (8192, 1000),
+                                 (16384, 1000)])
 def test_k1_kernel_matches_plain(cuda, N, M):
     args = _k1_case(0, N, M)
     kw = dict(max_dist=100, ratio=0.8, level_lo=-1, level_hi=1)
@@ -157,11 +161,12 @@ def _k2_case(B, N, stereo, seed, frac_mono=0.5):
 # N: cluster sizes 1 (5, 256), 2 (257) and 8 (2048, 2049: a ragged edge),
 # 8192 (the bootstrap's arena: every staged row in use) and 9000 rows, past
 # the 8 x 1024 rows staged in shared memory; B = 8 is the fleet's batch (8
-# clusters of 8 CTAs at N = 2048)
+# clusters of 8 CTAs at N = 2048); the stereo template at N = 16384, the
+# grown arena's rows in chip_smoke.py phase 16's scale-full
 K2_CASES = [(1, 300, False), (1, 256, True), (1, 2048, False), (4, 2048, True),
             (3, 5, False)] + [(B, N, stereo) for N in (5, 256, 257, 2048, 2049, 8192, 9000)
                               for B in (1, 4) for stereo in (False, True)] + [
-    (8, 2048, False), (8, 2048, True), (8, 300, False), (8, 9000, False)]
+    (8, 2048, False), (8, 2048, True), (8, 300, False), (8, 9000, False), (1, 16384, True)]
 
 
 @pytest.mark.parametrize("B,N,stereo", K2_CASES)
@@ -1112,3 +1117,63 @@ def test_the_fleet_step_launches_k2_once_over_eight_sessions(cuda):
         assert int(nb) == int(n[b]) >= 50
         torch.testing.assert_close(R[b], Rb, rtol=0, atol=1e-5)
         torch.testing.assert_close(t[b], tb, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the reference's operating scale: the grown arena (chip_smoke.py phase 16)
+# ---------------------------------------------------------------------------
+
+def test_a_grown_arena_reaches_the_mapper_on_its_own_stream(cuda):
+    """A free-running RGB-D session at 256x192 with kmax 8, lmax 1024 and a
+    keyframe every frame: the tracker compacts and doubles the arena while
+    the mapper thread maps on its own stream. The mapper's next package
+    takes the grown state across with record_stream (runtime/mapper.
+    hand_over, after the package's event) and maps it on its stream; the
+    session stays sound."""
+    from orb_slam3_tpu_torch import entry
+    from orb_slam3_tpu_torch.atlas import invariants
+    from orb_slam3_tpu_torch.atlas import state as atlas_state
+    from orb_slam3_tpu_torch.frontend import orb
+    from orb_slam3_tpu_torch.mapping import fuse
+    from orb_slam3_tpu_torch.runtime import mapper as mapper_mod
+
+    K, wh = (200.0, 200.0, 128.0, 96.0), (256, 192)
+    planes = entry.plane_scene(11)
+    R, t = entry.orbit_trajectory(12, advance=0.02)
+    frames = [entry.render_with_depth(planes, K, wh, R[i], t[i]) for i in range(12)]
+    cfg = entry.tracker_config(cuda, img_wh=wh, K=K, sensor="rgbd", bf=20.0,
+                               orb=orb.OrbConfig(300, 4), kmax=8, lmax=1024, local_window=4,
+                               kf_max_frames=1)
+    handed, fuse_at = [], []
+    o_hand, o_fuse = mapper_mod.hand_over, fuse.fuse_into_keyframe
+
+    def hand_rec(obj, stream):
+        if isinstance(obj, atlas_state.MapState) and stream is not None:
+            handed.append((obj.kmax, obj.lmax, stream.cuda_stream))
+        return o_hand(obj, stream)
+
+    def fuse_rec(kind, K8, s, *a, **kw):
+        fuse_at.append((s.kmax, s.lmax, torch.cuda.current_stream(cuda).cuda_stream))
+        return o_fuse(kind, K8, s, *a, **kw)
+
+    mapper_mod.hand_over, fuse.fuse_into_keyframe = hand_rec, fuse_rec
+    try:
+        system = entry.slam(frames, cfg)
+    finally:
+        mapper_mod.hand_over, fuse.fuse_into_keyframe = o_hand, o_fuse
+    tr = system.tracker
+    m = tr.async_mapper
+    try:
+        assert tr.cfg.async_mapping and m._stream is not None
+        side = m._stream.cuda_stream
+        assert side != torch.cuda.current_stream(cuda).cuda_stream
+        assert tr.map.kmax > 8 and tr.map.lmax > 1024
+        assert (m._state.kmax, m._state.lmax) == (tr.map.kmax, tr.map.lmax)
+        grown = (tr.map.kmax, tr.map.lmax)
+        assert (grown[0], grown[1], side) in handed, handed
+        assert {f[2] for f in fuse_at} == {side}
+        assert any(f[:2] == grown for f in fuse_at), fuse_at
+        ts, Rs, ts_, ok = tr.poses()
+        assert ok[-4:].all() and invariants.check_all(tr.map) == []
+    finally:
+        system.shutdown()
