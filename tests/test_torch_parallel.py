@@ -58,7 +58,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(prog: str, n: int, *args, timeout=240):
+def run_ranks(prog: str, n: int, *args, timeout=60):
     """Run `prog` in n processes (argv: rank, world, port, *args); every one
     must exit 0. Returns their outputs."""
     port = str(free_port())

@@ -26,12 +26,16 @@
 - Loading an Atlas, the fleet step, the distributed global BA,
   init_distributed and the dataset drivers default to CUDA and raise
   where there is none.
+- Every file that conftest.py orders exists, and its scheduling hook
+  keeps each file's tests together, the longest sessions first.
 """
 
 import ast
 import importlib
+import importlib.util
 import pkgutil
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -331,3 +335,35 @@ def test_resume_fleet_gba_and_drivers_default_to_cuda_and_raise_without_it(monke
     r = tsystem.System(config=cpu_cfg, atlas_path=path)
     assert r.tracker.map.kf_R.device.type == "cpu" and int(r.tracker.map.active_map) == 1
     r.shutdown()
+
+
+def _root_conftest():
+    spec = importlib.util.spec_from_file_location("root_conftest", ROOT / "conftest.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_every_file_the_conftest_orders_exists():
+    conftest = _root_conftest()
+    listed = conftest.FIRST + conftest.LAST
+    assert len(conftest.FIRST) >= 1 and len(set(listed)) == len(listed)
+    missing = [f for f in listed if not (ROOT / "tests" / f).is_file()]
+    assert not missing, f"conftest.py orders files that are gone: {missing}"
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_the_conftest_starts_the_longest_sessions_first_and_keeps_files_whole(reverse):
+    conftest = _root_conftest()
+    first, last = list(conftest.FIRST), list(conftest.LAST)
+    cheap = [f"test_cheap_{i}.py" for i in range(8)]
+    listed = (first + last)[::-1] if reverse else first + last
+    collected = [f for pair in zip(listed, cheap) for f in pair] + listed[len(cheap):]
+    items = [SimpleNamespace(path=Path("tests") / f, case=(f, k))
+             for f in collected for k in range(3)]
+    conftest.pytest_collection_modifyitems(None, items)
+
+    order = list(dict.fromkeys(item.path.name for item in items))
+    assert [item.case for item in items] == [(f, k) for f in order for k in range(3)]
+    # the longest sessions, then the files not listed in collection order, then LAST
+    assert order == first + cheap + last
