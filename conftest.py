@@ -1,20 +1,25 @@
-"""Order in which pytest-xdist hands out the test files.
+"""The Tier-1 harness: the order in which pytest-xdist hands out the test files,
+and the one test with a time limit.
 
-Under `-n N --dist loadfile` each file runs whole on one worker. By default xdist
-hands out the files with the most tests first, so the multi-minute one-test
-sessions start last and run on past the suite's time limit. Here the longest
-sessions start first, the files not listed come next in collection order, and
-the files of LAST follow, cheapest first, so that a run cut by its time limit
-has done the most tests.
+Order. Under `-n N --dist loadfile` each file runs whole on one worker. By
+default xdist hands out the files with the most tests first, so the
+multi-minute one-test sessions start last and run on past the suite's time
+limit. Here the longest sessions start first, the files not listed come next in
+collection order, and the files of LAST follow, costliest first, so that the
+last file to start is a short one and the run ends soonest. Seconds are worker
+wall time in a whole `-m 'not slow' -n 6 --dist loadfile` run on an 8-core host
+with a cold compile cache. A new test file over 90 s gets its place in LAST.
 
-Seconds are worker wall time in a whole `-m 'not slow' -n 6 --dist loadfile` run
-on an 8-core host with a warm compile cache. A new test file over 90 s gets its
-place in LAST.
+Time limit. TIME_LIMITS holds the tests that are stopped after so many seconds
+of worker wall time and fail with the reason given there. An entry needs a test
+that cannot pass on the frozen reference package.
 """
+
+import signal
 
 import pytest
 
-# 800-1400 s each beside the other files; they start at once to end inside the limit.
+# 650-1300 s each beside the other files; they start at once to end inside the limit.
 FIRST = (
     "test_reference_scale.py",
     "test_loop_closing.py",
@@ -22,23 +27,47 @@ FIRST = (
     "test_slam_vi.py",
 )
 
-# 90-500 s each, cheapest first. test_vi_loop.py (~1300 s, ~2300 CPU-s) comes
-# after them all: the suite's CPU time does not fit the limit with it, and it
-# fails on the reference package itself (metric scale -0.014 against 1 +- 0.1),
-# so it takes what time is left rather than that of the passing tests.
+# 90-480 s each, costliest first.
 LAST = (
-    "test_api.py",
-    "test_place.py",
-    "test_imu.py",
-    "test_slam_mono.py",
-    "test_imu_init.py",
-    "test_slam_rgbd_stereo.py",
-    "test_compaction.py",
+    "test_multihost.py",
     "test_slam_vi_depth.py",
     "test_loop_reloc.py",
-    "test_multihost.py",
+    "test_compaction.py",
     "test_vi_loop.py",
+    "test_slam_rgbd_stereo.py",
+    "test_api.py",
+    "test_place.py",
+    "test_slam_mono.py",
 )
+
+# "file::test" -> (seconds of worker wall time, why the test cannot pass)
+TIME_LIMITS = {
+    "test_vi_loop.py::test_vi_loop_preserves_gravity": (
+        150,
+        "it fails on the reference package itself at tests/test_vi_loop.py:159 "
+        "(metric scale -0.014 against 1 +- 0.1), after a ~1300 s session",
+    ),
+}
+
+
+@pytest.hookimpl(wrapper=True)
+def pytest_runtest_call(item):
+    limit = TIME_LIMITS.get(f"{item.path.name}::{item.name}")
+    if limit is None:
+        return (yield)
+    seconds, why = limit
+
+    def expire(signum, frame):
+        pytest.fail(f"stopped at its time limit of {seconds} s: {why}", pytrace=False)
+
+    previous = signal.signal(signal.SIGALRM, expire)   # xdist runs tests in the main thread
+    # fires again each second, in case the first lands where it is swallowed (a __del__)
+    signal.setitimer(signal.ITIMER_REAL, seconds, 1.0)
+    try:
+        return (yield)
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, previous)
 
 
 def pytest_configure(config):

@@ -28,12 +28,16 @@
   where there is none.
 - Every file that conftest.py orders exists, and its scheduling hook
   keeps each file's tests together, the longest sessions first.
+- conftest.py's one time limit names a test that exists, fails it at the
+  limit and disarms after it.
 """
 
 import ast
 import importlib
 import importlib.util
 import pkgutil
+import signal
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -367,3 +371,37 @@ def test_the_conftest_starts_the_longest_sessions_first_and_keeps_files_whole(re
     assert [item.case for item in items] == [(f, k) for f in order for k in range(3)]
     # the longest sessions, then the files not listed in collection order, then LAST
     assert order == first + cheap + last
+
+
+def test_the_time_limit_fails_a_sleeping_test_and_disarms(monkeypatch):
+    conftest = _root_conftest()
+    monkeypatch.setattr(conftest, "TIME_LIMITS", {"test_stand_in.py::test_sleeps": (1, "it sleeps")})
+    before = signal.getsignal(signal.SIGALRM)
+    hook = conftest.pytest_runtest_call(SimpleNamespace(path=Path("tests/test_stand_in.py"),
+                                                        name="test_sleeps"))
+    next(hook)                                # armed, as pytest does before the call
+    t0 = time.monotonic()
+    with pytest.raises(pytest.fail.Exception) as failed:
+        time.sleep(30)                        # the stand-in test
+    assert 0.9 < time.monotonic() - t0 < 5
+    with pytest.raises(pytest.fail.Exception, match="time limit of 1 s: it sleeps"):
+        hook.throw(failed.value)              # pytest hands the test's error to the wrapper
+    assert signal.getitimer(signal.ITIMER_REAL) == (0.0, 0.0)
+    assert signal.getsignal(signal.SIGALRM) is before
+
+    other = conftest.pytest_runtest_call(SimpleNamespace(path=Path("tests/test_stand_in.py"),
+                                                         name="test_other"))
+    next(other)
+    assert signal.getitimer(signal.ITIMER_REAL) == (0.0, 0.0)
+    with pytest.raises(StopIteration):
+        other.send(None)
+
+
+def test_the_one_time_limit_names_a_test_that_exists():
+    conftest = _root_conftest()
+    assert len(conftest.TIME_LIMITS) == 1
+    for name, (seconds, why) in conftest.TIME_LIMITS.items():
+        file, test = name.split("::")
+        tree = ast.parse((ROOT / "tests" / file).read_text())
+        assert test in {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+        assert 0 < seconds < 300 and why
